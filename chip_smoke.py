@@ -5,15 +5,20 @@
     python3 chip_smoke.py --phases env,build,kernels
     python3 chip_smoke.py --profile       # adds one profiled training step
 
-Phases, each printing one JSON line:
-  env      versions, device name, power limit
-  build    compiles the CUDA kernels from src/repro_torch/kernels/csrc
-  kernels  each kernel against its plain PyTorch version on the card: fp32 at
-           small shapes, bf16 at the training shapes; times each kernel, its
-           plain version and the library call, and computes its bound
-  train    Trainer.fit on full-width, full-depth gemma3-1b at S=4096 through
-           the flash kernels; checks losses, launch counts and the checkpoint
-  parity   kernel path == dense path (loss and grads) on a small fp32 model
+Phases, each printing one JSON line (or a few):
+  env         versions, device name, power limit
+  build       compiles the CUDA kernels from src/repro_torch/kernels/csrc
+  kernels     each of the six kernels against its plain PyTorch version on
+              the card: fp32 at small shapes, bf16 at the training shapes;
+              times each kernel, its plain version and the library call, and
+              computes its bound
+  train       Trainer.fit on full-width, full-depth gemma3-1b at S=4096
+              through the flash, rmsnorm and fused_adam kernels; checks
+              losses, launch counts and the checkpoint
+  train_ssm   the same for full-width, full-depth mamba2-1.3b through the
+              ssd_chunk, rmsnorm and fused_adam kernels
+  parity      kernel path == plain path (loss and grads), small fp32 gemma3
+  parity_ssm  the same for a small fp32 mamba2
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 non-zero and the last line is not printed.  There is no CPU fallback.
@@ -47,12 +52,17 @@ from repro_torch.configs import get_config, get_shape, smoke_config  # noqa: E40
 from repro_torch.convert import tree_flatten_with_path, tree_map  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import fused_adam as fad  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
 from repro_torch.launch.train import Trainer  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.training.loss import lm_loss  # noqa: E402
 
 DEV = "cuda"
 PEAK_FLOPS = 989e12      # H100 SXM, dense bf16 tensor cores (data sheet)
+PEAK_FP32 = 67e12        # H100 SXM, fp32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM, HBM3 (data sheet)
 TRAIN_STEPS = 6
 TRAIN_BATCH = 4
@@ -68,7 +78,17 @@ KERNELS = {
     "flash_dkv": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/flash_dkv.cu",
                   "replaces": "src/repro/kernels/flash_attention.py:227"},
+    "rmsnorm": {"route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "replaces": "src/repro/kernels/rmsnorm.py:28"},
+    "fused_adam": {"route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
+                   "replaces": "src/repro/kernels/fused_adam.py:44"},
+    "ssd_chunk": {"route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                  "replaces": "src/repro/kernels/ssd_chunk.py:62"},
 }
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def emit(phase: str, **kw) -> None:
@@ -126,9 +146,16 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def close(a, b, tol) -> bool:
-    """|a − b| <= tol + tol·|b| elementwise, as tests/test_kernels.py asks."""
-    return bool(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol))
+def expect_close(name, got, want, atol, rtol, what) -> float:
+    """Raise unless got is finite and |got − want| <= atol + rtol·|want|
+    elementwise (as tests/test_kernels.py asks); returns the max abs error."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output at {what}")
+    if not torch.allclose(got, want, atol=atol, rtol=rtol):
+        raise AssertionError(f"{name} disagrees with its plain version at {what}: max abs "
+                             f"err {max_err(got, want):.3e}, atol {atol}, rtol {rtol}")
+    return max_err(got, want)
 
 
 def check_case(case, dtype, tol_fwd, tol_grad, seed) -> dict:
@@ -148,17 +175,9 @@ def check_case(case, dtype, tol_fwd, tol_grad, seed) -> dict:
     pairs = {"flash_fwd": [(o, o_p, tol_fwd), (lse, lse_p, tol_fwd)],
              "flash_dq": [(dq, dq_p, tol_grad)],
              "flash_dkv": [(dk, dk_p, tol_grad), (dv, dv_p, tol_grad)]}
-    errs = {}
-    for name, lst in pairs.items():
-        for a, b, tol in lst:
-            if not torch.isfinite(a.float()).all():
-                raise AssertionError(f"{name}: non-finite output at {case} {dtype}")
-            if not close(a, b, tol):
-                raise AssertionError(
-                    f"{name} disagrees with its plain version at {case} {dtype}: "
-                    f"max abs err {max_err(a, b):.3e}, tol {tol}")
-        errs[name] = max(max_err(a, b) for a, b, _ in lst)
-    return errs
+    return {name: max(expect_close(name, a, b, tol, tol, f"{case} {dtype}")
+                      for a, b, tol in lst)
+            for name, lst in pairs.items()}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -238,7 +257,7 @@ def time_case(case, dtype, reps) -> dict:
     bnd = bounds(B, S, T, H, Kv, hd, causal, window, q.element_size())
     return {name: {"ms": ms[name], "plain_ms": plain[name], "library_ms": lib[name],
                    "bound_ms": bnd[name]["bound_ms"], "bound_by": bnd[name]["bound_by"]}
-            for name in KERNELS}
+            for name in FLASH}
 
 
 SMALL_CASES = [
@@ -257,8 +276,8 @@ SMALL_CASES = [
 ]
 
 
-def phase_kernels(cfg) -> dict:
-    worst = dict.fromkeys(KERNELS, 0.0)
+def phase_kernels_flash(cfg) -> dict:
+    worst = dict.fromkeys(FLASH, 0.0)
     for i, case in enumerate(SMALL_CASES):
         for name, e in check_case(case, torch.float32, 2e-5, 5e-5, seed=i).items():
             worst[name] = max(worst[name], e)
@@ -275,7 +294,7 @@ def phase_kernels(cfg) -> dict:
         torch.cuda.empty_cache()
         timed = time_case(case, torch.bfloat16, reps=5)
         torch.cuda.empty_cache()
-        for name in KERNELS:
+        for name in FLASH:
             timed[name]["max_abs_err"] = errs[name]
         out[tag] = timed
         emit("kernels_bf16", layer=tag, shape=dict(zip(
@@ -284,38 +303,339 @@ def phase_kernels(cfg) -> dict:
     return out
 
 
+def bound(flops: float, nbytes: float, peak_flops: float) -> dict:
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def generator(seed: int) -> torch.Generator:
+    """Inputs of the rmsnorm, fused_adam and ssd_chunk checks are drawn on
+    the card (hundreds of millions of values for the optimizer's leaves)."""
+    return torch.Generator(device=DEV).manual_seed(seed)
+
+
+def randn(rng, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=rng, device=DEV) * scale).to(dtype)
+
+
+def backward_ms(fn, args, reps) -> float:
+    """ms of the backward of ``fn`` (an autograd Function of ops: autograd
+    of the kernel's plain version) with respect to all its inputs."""
+    leaves = [a.detach().requires_grad_(True) for a in args]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    cots = [torch.ones_like(o) for o in outs]
+    ms = time_ms(lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True), reps)
+    del outs
+    return ms
+
+
+# -- rmsnorm --------------------------------------------------------------------
+
+
+def rmsnorm_bound(rows, d, itemsize) -> dict:
+    """x read and y written once, scale read once; sum of squares, mean,
+    rsqrt and two products: about 4 fp32 operations an element."""
+    return bound(4 * rows * d, 2 * rows * d * itemsize + 4 * d, PEAK_FP32)
+
+
+def check_rmsnorm(shape, dtype, tol, seed) -> float:
+    rng = generator(seed)
+    x = randn(rng, shape, dtype)
+    scale = randn(rng, shape[-1:], torch.float32, 0.1)
+    y = rn.rmsnorm_cuda(x, scale)
+    torch.cuda.synchronize()
+    if y.dtype != x.dtype or y.shape != x.shape:
+        raise AssertionError(f"rmsnorm: got {y.dtype} {tuple(y.shape)} for {x.dtype} {shape}")
+    return expect_close("rmsnorm", y, rn.rmsnorm_plain(x, scale), tol, tol, f"{shape} {dtype}")
+
+
+def time_rmsnorm(rows, d) -> dict:
+    rng = generator(11)
+    x = randn(rng, (rows, d), torch.bfloat16)
+    scale = randn(rng, (d,), torch.float32, 0.1)
+    err = check_rmsnorm((rows, d), torch.bfloat16, 2e-2, seed=12)
+    # library yardstick: one PyTorch call, weight (1 + scale) in x's dtype (the
+    # port never calls it)
+    w = (1.0 + scale).to(x.dtype)
+    return {"max_abs_err": err,
+            "ms": time_ms(lambda: rn.rmsnorm_cuda(x, scale), 20),
+            "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, scale), 5),
+            "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6), 20),
+            "backward_plain_ms": backward_ms(ops.rmsnorm, (x, scale), 5),
+            **rmsnorm_bound(rows, d, x.element_size())}
+
+
+# -- fused_adam -----------------------------------------------------------------
+
+
+def adam_bound(n, p_dt, g_dt, s_dt) -> dict:
+    """p, m, v read and written once, g read once; about 16 fp32 operations
+    an element."""
+    size = lambda dt: torch.tensor([], dtype=dt).element_size()
+    nbytes = n * (2 * size(p_dt) + size(g_dt) + 4 * size(s_dt))
+    return bound(16 * n, nbytes, PEAK_FP32)
+
+
+def adam_leaf(rng, n, p_dt, g_dt, s_dt):
+    p = randn(rng, (n,), p_dt)
+    g = randn(rng, (n,), g_dt)
+    m = randn(rng, (n,), s_dt, 0.1)
+    v = (randn(rng, (n,), torch.float32).abs() * 0.01).to(s_dt)
+    return p, g, m, v
+
+
+ADAM_HP = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+
+
+def check_adam(leaf, count, tol) -> float:
+    """Kernel and plain version on copies of ``leaf`` (p, g, m, v)."""
+    mine = [t.clone() for t in leaf]
+    plain = [t.clone() for t in leaf]
+    cnt = torch.tensor(count, dtype=torch.int32, device=DEV)
+    fad.fused_adam_cuda(*mine, cnt, **ADAM_HP)
+    fad.fused_adam_plain(*plain, cnt, **ADAM_HP)
+    torch.cuda.synchronize()
+    p, g, m, _ = leaf
+    what = f"n={p.numel()} p {p.dtype} g {g.dtype} m/v {m.dtype} count {count}"
+    errs = [expect_close("fused_adam", a, b, tol, tol, f"{what} ({k})")
+            for k, a, b in zip("pgmv", mine, plain, strict=True) if k != "g"]
+    del mine, plain
+    return max(errs)
+
+
+def time_adam(shape, p_dt, g_dt, s_dt) -> dict:
+    n = math.prod(shape)
+    p, g, m, v = leaf = adam_leaf(generator(13), n, p_dt, g_dt, s_dt)
+    cnt = torch.tensor(100, dtype=torch.int32, device=DEV)
+    err = check_adam(leaf, 100, 2e-2)
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: fad.fused_adam_cuda(p, g, m, v, cnt, **ADAM_HP), 10)
+    plain_ms = time_ms(lambda: fad.fused_adam_plain(p, g, m, v, cnt, **ADAM_HP), 3)
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **adam_bound(n, p_dt, g_dt, s_dt)}
+    if p_dt == g_dt == s_dt:
+        # library yardstick: torch._fused_adamw_ (the port never calls it);
+        # it takes one dtype for params, grads and states
+        step = torch.tensor(100.0, device=DEV)
+        out["library_ms"] = time_ms(lambda: torch._fused_adamw_(
+            [p], [g], [m], [v], [], [step], lr=1e-3, beta1=0.9, beta2=0.95,
+            weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False), 10)
+    else:
+        out["library_ms"] = None
+        out["library_note"] = ("torch._fused_adamw_ takes one dtype for params, grads and "
+                               "states; these are mixed")
+    return out
+
+
+# -- ssd_chunk ------------------------------------------------------------------
+
+
+def ssd_bound(Bt, nc, Q, H, hp, G, N, itemsize) -> dict:
+    """The causal half of C·Bᵀ and of att·(x·dt), and the states product,
+    2 FLOPs a multiply-add; x, dt, B, C (per group), a read once and y,
+    states, cum written once."""
+    tri = Q * (Q + 1) // 2
+    flops = Bt * nc * H * (tri * 2 * (N + hp) + 2 * Q * N * hp)
+    nbytes = (Bt * nc * Q * (2 * H * hp * itemsize + 2 * G * N * itemsize + 2 * H * 4)
+              + Bt * nc * H * N * hp * 4 + H * 4)
+    return bound(flops, nbytes, PEAK_FLOPS)
+
+
+def ssd_inputs(seed, Bt, nc, Q, H, hp, G, N, dtype, dt_scale=0.1):
+    """The model's layout: b and c are the two group halves of one (…, 2G, N)
+    tensor, as the model slices them out of ``bc`` (strided views)."""
+    rng = generator(seed)
+    x = randn(rng, (Bt, nc, Q, H, hp), dtype)
+    dt = randn(rng, (Bt, nc, Q, H), torch.float32).abs() * dt_scale
+    bc = randn(rng, (Bt, nc, Q, 2 * G, N), dtype)
+    b, c = bc.split(G, dim=3)
+    a = -randn(rng, (H,), torch.float32).abs() - 0.1
+    return x, dt, b, c, a
+
+
+def check_ssd(args, tol, what) -> float:
+    got = sc.ssd_chunk_cuda(*args)
+    want = sc.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    errs = []
+    for k, a, b, atol, rtol in zip(("y", "states", "cum"), got, want,
+                                   (10 * tol, 10 * tol, tol), (tol, tol, tol), strict=True):
+        errs.append(expect_close("ssd_chunk", a, b, atol, rtol, f"{what} ({k})"))
+    return max(errs)
+
+
+SSD_CASES = [
+    # Q, hp, N: the reference's test shapes (BH=3 heads, one per group, nc=2) ...
+    (64, 32, 16), (128, 64, 128), (32, 16, 32),
+]
+
+
+def check_ssd_fp32() -> float:
+    worst = 0.0
+    for i, (Q, hp, N) in enumerate(SSD_CASES):
+        rng = generator(i)
+        BH, nc = 3, 2
+        x = randn(rng, (BH, nc, Q, hp), torch.float32)
+        dt = randn(rng, (BH, nc, Q), torch.float32).abs() * 0.1
+        b = randn(rng, (BH, nc, Q, N), torch.float32)
+        c = randn(rng, (BH, nc, Q, N), torch.float32)
+        a = -randn(rng, (BH,), torch.float32).abs() - 0.1
+        got = ops.ssd_chunk(x, dt, b, c, a)            # the reference's layout
+        want = ref.ssd_chunk_ref(x, dt, b, c, a)
+        torch.cuda.synchronize()
+        for k, u, w, atol in zip(("y", "states", "cum"), got, want, (2e-4, 2e-4, 1e-5),
+                                 strict=True):
+            worst = max(worst, expect_close("ssd_chunk", u, w, atol, 2e-5,
+                                            f"Q={Q} hp={hp} N={N} fp32 ({k})"))
+    # ... and the model's layout: 8 heads on 2 groups, a ragged last row tile
+    # (Q = 96) with dt as large as the model's at init, and mamba2's Q, hp, N
+    for Q, hp, N, dt_scale in ((96, 16, 32, 0.7), (256, 64, 128, 0.1)):
+        args = ssd_inputs(7, 2, 2, Q, 8, hp, 2, N, torch.float32, dt_scale)
+        worst = max(worst, check_ssd(args, 2e-5, f"model layout Q={Q} hp={hp} N={N} fp32"))
+    return worst
+
+
+def time_ssd(Bt, nc, Q, H, hp, G, N) -> dict:
+    args = ssd_inputs(15, Bt, nc, Q, H, hp, G, N, torch.bfloat16)
+    err = check_ssd(args, 2e-2, f"B={Bt} nc={nc} Q={Q} H={H} hp={hp} N={N} bf16")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err,
+            "ms": time_ms(lambda: sc.ssd_chunk_cuda(*args), 5),
+            "plain_ms": time_ms(lambda: sc.ssd_chunk_plain(*args), 2),
+            "backward_plain_ms": backward_ms(ops.ssd_chunk_heads, args, 2),
+            "library_ms": None,
+            "library_note": "no PyTorch call computes the SSD chunk",
+            "tol": 0.2, "rtol": 2e-2,        # y: ten times the absolute tolerance
+            **ssd_bound(Bt, nc, Q, H, hp, G, N, 2)}
+
+
+def phase_kernels_more(gemma, mamba) -> dict:
+    """rmsnorm, fused_adam and ssd_chunk: fp32 at small shapes, then bf16 at
+    the shapes the training runs give them, timed."""
+    worst = {"rmsnorm": 0.0, "fused_adam": 0.0}
+    for i, shape in enumerate([(4, 128), (2, 33, 256), (1, 7, 5, 64), (37, 1152),
+                               (5, 2048), (3, 4096), (2, 8200)]):
+        worst["rmsnorm"] = max(worst["rmsnorm"],
+                               check_rmsnorm(shape, torch.float32, 2e-5, seed=i))
+    f32 = torch.float32
+    for i, (n, count) in enumerate([(2 ** 10, 1), (3 * 2 ** 9, 100), (2 ** 16, 1),
+                                    (1_000_003, 100)]):
+        leaf = adam_leaf(generator(i), n, f32, f32, f32)
+        worst["fused_adam"] = max(worst["fused_adam"], check_adam(leaf, count, 1e-6))
+    mixed = 0.0
+    for i, dts in enumerate([(torch.bfloat16, torch.bfloat16, torch.float32),
+                             (torch.bfloat16, torch.float32, torch.float32),
+                             (torch.float32, torch.float32, torch.bfloat16),
+                             (torch.bfloat16, torch.bfloat16, torch.bfloat16)]):
+        mixed = max(mixed, check_adam(adam_leaf(generator(10 + i), 100_003, *dts), 100, 2e-2))
+    worst["ssd_chunk"] = check_ssd_fp32()
+    emit("kernels_fp32_more", tol={"rmsnorm": 2e-5, "fused_adam": 1e-6,
+                                   "fused_adam_mixed_dtypes": 2e-2,
+                                   "ssd_chunk": "y, states: atol 2e-4 rtol 2e-5; cum 1e-5"},
+         max_abs_err={**worst, "fused_adam_mixed_dtypes": mixed})
+
+    rows = TRAIN_BATCH * SEQ
+    norms = {d: time_rmsnorm(rows, d) for d in (gemma.d_model, mamba.d_model, mamba.d_inner)}
+    torch.cuda.empty_cache()
+    L = mamba.n_layers
+    adam = {"mamba2 scan wz (bf16 p/g, fp32 m/v)": time_adam(
+                (L, mamba.d_model, mamba.d_inner), torch.bfloat16, torch.bfloat16,
+                torch.float32),
+            "gemma3 embed table (bf16 p/g, fp32 m/v)": time_adam(
+                (gemma.vocab, gemma.d_model), torch.bfloat16, torch.bfloat16, torch.float32),
+            "mamba2 scan wz, all fp32": time_adam(
+                (L, mamba.d_model, mamba.d_inner), torch.float32, torch.float32,
+                torch.float32)}
+    torch.cuda.empty_cache()
+    s = mamba.ssm
+    ssd_shape = (TRAIN_BATCH, SEQ // s.chunk, s.chunk, mamba.ssm_heads, s.headdim,
+                 s.n_groups, s.d_state)
+    ssd = time_ssd(*ssd_shape)
+    torch.cuda.empty_cache()
+    emit("kernels_bf16_more", tol=2e-2, rmsnorm={f"rows={rows} d={d}": v for d, v in norms.items()},
+         fused_adam=adam,
+         ssd_chunk={"shape": dict(zip(("B", "nc", "Q", "H", "hp", "G", "N"), ssd_shape,
+                                      strict=True)), **ssd})
+    return {"rmsnorm": {**norms[mamba.d_model], "shape": f"bf16 rows={rows} d={mamba.d_model}",
+                        "other_shapes": {f"d={d}": norms[d] for d in norms if d != mamba.d_model}},
+            "fused_adam": {**adam["mamba2 scan wz (bf16 p/g, fp32 m/v)"],
+                           "shape": f"mamba2 scan wz leaf {(L, mamba.d_model, mamba.d_inner)}, "
+                                    "bf16 p/g, fp32 m/v",
+                           "other_shapes": {k: v for k, v in adam.items()
+                                            if not k.startswith("mamba2 scan wz (bf16")}},
+            "ssd_chunk": {**ssd, "shape": "bf16 B={} nc={} Q={} H={} hp={} G={} N={}".format(
+                *ssd_shape)}}
+
+
 # ---------------------------------------------------------------------------
 # train
 # ---------------------------------------------------------------------------
 
 
-def phase_train(cfg, profile: bool) -> dict:
+def expected_launches(cfg, leaves: int) -> dict:
+    """Kernel launches of one training step, derived from the model code.
+    Each layer runs its forward once, and once more in the backward when its
+    period is recomputed (``cfg.remat != "none"``: every scanned layer; the
+    remainder layers are not recomputed).  A layer's forward launches one
+    rmsnorm for ln1, one for ln2 when it has an MLP and one for a mamba
+    mixer's gated norm, one flash_fwd for an attention mixer and one
+    ssd_chunk for a mamba mixer; its backward one flash_dq and one flash_dkv
+    for attention (rmsnorm and ssd_chunk have no backward kernel).  Then the
+    final norm, and fused_adam once per parameter leaf."""
+    period = cfg.scan_period()
+    recomputed = (cfg.n_layers // period) * period if cfg.remat != "none" else 0
+    out = dict.fromkeys(KERNELS, 0)
+    for i, spec in enumerate(cfg.layer_specs()):
+        runs = 2 if i < recomputed else 1
+        attn = int(spec.mixer in ("attn", "local"))
+        mamba = int(spec.mixer == "mamba")
+        out["flash_fwd"] += runs * attn
+        out["flash_dq"] += attn
+        out["flash_dkv"] += attn
+        out["ssd_chunk"] += runs * mamba
+        out["rmsnorm"] += runs * (1 + int(cfg.mlp != "none") + mamba)
+    out["rmsnorm"] += 1
+    out["fused_adam"] = leaves
+    return out
+
+
+def reset_launches() -> None:
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+
+
+def phase_train(cfg, phase: str, profile: bool) -> dict:
     n_layers = cfg.n_layers
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         torch.cuda.reset_peak_memory_stats()
         tr = Trainer(cfg, get_shape("train_4k"), device=DEV, ckpt_dir=ckpt_dir,
                      ckpt_every=TRAIN_STEPS)
-        for name in fa.LAUNCHES:
-            fa.LAUNCHES[name] = 0
+        reset_launches()
         logs = tr.fit(steps=TRAIN_STEPS, batch_override=TRAIN_BATCH)
-        launches = dict(fa.LAUNCHES)
+        launches = dict(ops.LAUNCHES)
         tr.ckpt.close()
         peak = torch.cuda.max_memory_allocated()
 
         losses = [l["loss"] for l in logs]
+        gnorms = [l["grad_norm"] for l in logs]
         if len(logs) != TRAIN_STEPS or not all(math.isfinite(x) and x > 0 for x in losses):
             raise AssertionError(f"bad losses: {losses}")
+        if not all(math.isfinite(x) and x > 0 for x in gnorms):
+            raise AssertionError(f"bad grad norms: {gnorms}")
         if losses[0] >= math.log(cfg.vocab) + 1:
             raise AssertionError(f"first loss {losses[0]} >= ln(V) + 1")
-        want = n_layers * TRAIN_STEPS
-        if launches["flash_fwd"] < want or launches["flash_dq"] != want \
-                or launches["flash_dkv"] != want:
-            raise AssertionError(f"launch counts {launches}, expected {want} per kernel")
+        params, opt_state = tr._last_state
+        per_step = expected_launches(cfg, len(tree_flatten_with_path(params)))
+        want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
+        if launches != want:
+            raise AssertionError(f"launch counts {launches}, expected {want}")
 
         if latest_step(ckpt_dir) != TRAIN_STEPS:
             raise AssertionError("no checkpoint was committed at the last step")
-        params, opt_state = tr._last_state
         tmpl = {"params": params, "opt": opt_state}
         loaded, manifest = load_checkpoint(ckpt_dir, tmpl, device="cpu")
         for (key, a), b in zip(tree_flatten_with_path(tmpl).items(),
@@ -329,21 +649,22 @@ def phase_train(cfg, profile: bool) -> dict:
         tok = TRAIN_BATCH * SEQ
         res = {"arch": cfg.name, "layers": n_layers, "batch": TRAIN_BATCH, "seq": SEQ,
                "params": cfg.param_count(), "steps": TRAIN_STEPS, "losses": losses,
-               "grad_norms": [l["grad_norm"] for l in logs], "step_s": times,
+               "grad_norms": gnorms, "step_s": times,
                "step_s_median_after_first": float(np.median(steady)),
                "tokens_per_s": tok / float(np.median(steady)),
                "peak_memory_bytes": peak, "launches": launches,
+               "launches_per_step": per_step,
                "checkpoint_step": manifest["step"], "checkpoint_bitexact": True}
-        emit("train", **res)
+        emit(phase, **res)
 
         if profile:
-            profile_step(tr, params, opt_state)
+            profile_step(tr, params, opt_state, phase)
         return launches
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
-def profile_step(tr, params, opt_state) -> None:
+def profile_step(tr, params, opt_state, phase: str) -> None:
     """One more training step under torch.profiler: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -362,14 +683,16 @@ def profile_step(tr, params, opt_state) -> None:
         raise AssertionError("the profiler recorded no device activity")
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    groups = {"flash_attention": ("fa::flash_",), "matmul": ("nvjet", "gemm", "cutlass"),
+    groups = {"flash_attention": ("fa::flash_",), "ssd_chunk": ("ssd::ssd_chunk",),
+              "rmsnorm": ("rn::rmsnorm",), "fused_adam": ("adam::adam",),
+              "matmul": ("nvjet", "gemm", "cutlass"),
               "elementwise": ("elementwise",), "reduce": ("reduce",),
               "memcpy_memset": ("Memcpy", "Memset")}
     by_group = dict.fromkeys([*groups, "other"], 0.0)
     for ms, _, key in rows:
         group = next((g for g, pats in groups.items() if any(p in key for p in pats)), "other")
         by_group[group] += ms
-    emit("profile", step_wall_ms=wall * 1e3, device_busy_ms=total,
+    emit("profile", of=phase, step_wall_ms=wall * 1e3, device_busy_ms=total,
          by_group_ms={g: round(ms, 2) for g, ms in by_group.items()},
          top=[{"ms": round(ms, 3), "calls": n, "kernel": key[:90]}
               for ms, n, key in rows[:16]])
@@ -380,74 +703,125 @@ def profile_step(tr, params, opt_state) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_parity() -> None:
-    cfg = replace(smoke_config("gemma3-1b"), param_dtype="float32",
-                  compute_dtype="float32")
+def parity(cfg, phase: str, seq: int) -> None:
+    """Kernel path (``use_flash=True``) vs plain path on the card, fp32: loss
+    to 1e-5, every gradient leaf to 5e-5, and the kernels the kernel path
+    launched counted (forward and backward of ``lm_loss``, no remat)."""
     # every weight in fp32 (the specs give the matrices bf16 whatever the config says)
     params = tree_map(lambda t: t.float(), init_params(cfg, 0, DEV))
     rng = np.random.default_rng(0)
-    inputs = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)).astype(np.int32)).to(DEV)
-    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)).astype(np.int32)).to(DEV)
+    inputs = torch.from_numpy(rng.integers(0, cfg.vocab, (2, seq)).astype(np.int32)).to(DEV)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, seq)).astype(np.int32)).to(DEV)
     leaves = list(tree_flatten_with_path(params).values())
     for p in leaves:
         p.requires_grad_(True)
     out = {}
     for flash in (True, False):
-        before = dict(fa.LAUNCHES)
+        reset_launches()
         loss, _ = lm_loss(params, replace(cfg, use_flash=flash), inputs, labels)
         grads = torch.autograd.grad(loss, leaves)
-        launched = sum(fa.LAUNCHES.values()) - sum(before.values())
-        out[flash] = (loss.item(), grads, launched)
-    if out[True][2] != 3 * cfg.n_layers or out[False][2] != 0:
-        raise AssertionError(f"kernel launches: flash {out[True][2]}, dense {out[False][2]}")
+        out[flash] = (loss.item(), grads, dict(ops.LAUNCHES))
+    want = {k: v for k, v in expected_launches(cfg, 0).items() if k != "fused_adam"}
+    got = {k: v for k, v in out[True][2].items() if k != "fused_adam"}
+    if got != want or any(out[False][2].values()):
+        raise AssertionError(f"kernel launches: kernel path {got} (expected {want}), "
+                             f"plain path {out[False][2]}")
     dloss = abs(out[True][0] - out[False][0])
     dgrad = max(max_err(a, b) for a, b in zip(out[True][1], out[False][1], strict=True))
     if not (dloss <= 1e-5 and dgrad <= 5e-5):
-        raise AssertionError(f"kernel path != dense path: loss {dloss}, grads {dgrad}")
-    emit("parity", config=cfg.name, layers=cfg.n_layers, seq=128, loss=out[True][0],
-         loss_abs_diff=dloss, tol_loss=1e-5, grad_max_abs_diff=dgrad, tol_grad=5e-5)
+        raise AssertionError(f"kernel path != plain path: loss {dloss}, grads {dgrad}")
+    emit(phase, config=cfg.name, layers=cfg.n_layers, seq=seq, loss=out[True][0],
+         loss_abs_diff=dloss, tol_loss=1e-5, grad_max_abs_diff=dgrad, tol_grad=5e-5,
+         launches=got)
+
+
+def phase_parity() -> None:
+    parity(replace(smoke_config("gemma3-1b"), param_dtype="float32",
+                   compute_dtype="float32"), "parity", 128)
+
+
+def phase_parity_ssm() -> None:
+    """A small mamba2 inside the kernels' contract: head dim 16, state 16,
+    chunk 64 (two chunks of S = 128), d_model 64, d_inner 128."""
+    base = smoke_config("mamba2-1.3b")
+    cfg = replace(base, param_dtype="float32", compute_dtype="float32",
+                  ssm=replace(base.ssm, headdim=16, chunk=64))
+    parity(cfg, "parity_ssm", 128)
 
 
 # ---------------------------------------------------------------------------
 
+PHASES = ("env", "build", "kernels", "train", "train_ssm", "parity", "parity_ssm")
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="env,build,kernels,train,parity")
+    ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="after the train phase, profile one more step")
+                    help="after each train phase, profile one more step")
     args = ap.parse_args()
     phases = args.phases.split(",")
     t0 = time.time()
 
-    cfg = replace(get_config("gemma3-1b"), use_flash=True)
+    gemma = replace(get_config("gemma3-1b"), use_flash=True)
+    mamba = replace(get_config("mamba2-1.3b"), use_flash=True)
     if "env" in phases:
         phase_env()
     if "build" in phases:
         phase_build()
-    timed = phase_kernels(cfg) if "kernels" in phases else None
-    launches = phase_train(cfg, args.profile) if "train" in phases else None
+    timed = None
+    if "kernels" in phases:
+        timed = phase_kernels_flash(gemma)
+        torch.cuda.empty_cache()
+        timed["more"] = phase_kernels_more(gemma, mamba)
+        torch.cuda.empty_cache()
+    launches = {}
+    if "train" in phases:
+        launches["train"] = phase_train(gemma, "train", args.profile)
+        torch.cuda.empty_cache()
+    if "train_ssm" in phases:
+        launches["train_ssm"] = phase_train(mamba, "train_ssm", args.profile)
+        torch.cuda.empty_cache()
     if "parity" in phases:
         phase_parity()
+    if "parity_ssm" in phases:
+        phase_parity_ssm()
 
     emit("done", phases=phases, seconds=round(time.time() - t0, 1))
-    if timed is not None and launches is not None:
+    if timed is not None and set(launches) == {"train", "train_ssm"}:
         line = []
         for name, meta in KERNELS.items():
-            g, w = timed["global"][name], timed["window"][name]
-            line.append({"name": name, **meta, "launches": launches[name],
-                         "max_abs_err": max(g["max_abs_err"], w["max_abs_err"]), "tol": 2e-2,
-                         "ms": g["ms"], "plain_ms": g["plain_ms"],
-                         "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
-                         "library_ms": g["library_ms"],
-                         "shape": f"bf16 B={TRAIN_BATCH} S=T={SEQ} H={cfg.n_heads} "
-                                  f"Kv={cfg.n_kv_heads} hd={cfg.head_dim_} causal",
-                         "window_layer": {"window": cfg.window, **{
-                             key: w[key] for key in ("ms", "plain_ms", "bound_ms",
-                                                     "bound_by", "library_ms")}}})
+            by_path = {path: counts[name] for path, counts in launches.items()}
+            # a kernel's own path: gemma3-1b for the flash kernels, mamba2-1.3b
+            # for the three this slice added (they run on both)
+            own = "train" if name in FLASH else "train_ssm"
+            entry = {"name": name, **meta, "launches": by_path[own],
+                     "launches_by_path": by_path}
+            if name in FLASH:
+                g, w = timed["global"][name], timed["window"][name]
+                entry.update({"max_abs_err": max(g["max_abs_err"], w["max_abs_err"]),
+                              "tol": 2e-2, "rtol": 2e-2, "ms": g["ms"], "plain_ms": g["plain_ms"],
+                              "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+                              "library_ms": g["library_ms"],
+                              "shape": f"bf16 B={TRAIN_BATCH} S=T={SEQ} H={gemma.n_heads} "
+                                       f"Kv={gemma.n_kv_heads} hd={gemma.head_dim_} causal",
+                              "window_layer": {"window": gemma.window, **{
+                                  key: w[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                          "bound_by", "library_ms")}}})
+            else:
+                t = timed["more"][name]
+                entry.update({"max_abs_err": t["max_abs_err"], "tol": t.get("tol", 2e-2),
+                              "rtol": t.get("rtol", 2e-2), "ms": t["ms"],
+                              "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                              "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                              "shape": t["shape"]})
+                for key in ("library_note", "backward_plain_ms", "other_shapes"):
+                    if key in t:
+                        entry[key] = t[key]
+            line.append(entry)
         print(json.dumps({"kernels": line}), flush=True)
     print(smi(), flush=True)
-    if set(phases) >= {"env", "build", "kernels", "train", "parity"}:
+    if set(phases) >= set(PHASES):
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

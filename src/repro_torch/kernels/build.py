@@ -21,9 +21,13 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_fwd", "flash_dq", "flash_dkv")
+SOURCES = ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm", "fused_adam", "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: launches per kernel, counted by each wrapper where it launches its kernel
+#: and nowhere else
+LAUNCHES = dict.fromkeys(SOURCES, 0)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: filled by the build: seconds, and ptxas' per-kernel resource lines
@@ -119,3 +123,19 @@ def load_library(name: str) -> ctypes.CDLL:
         for n, p in paths.items():
             _LIBS[n] = ctypes.CDLL(str(p))
     return _LIBS[name]
+
+
+def launch(name: str, argtypes: list, device, *args) -> None:
+    """Call ``csrc/<name>.cu``'s C entry point ``name`` with ``args`` and the
+    current CUDA stream of ``device`` (appended as the last argument).  The
+    entry point returns ``cudaGetLastError()`` of its launch; anything but 0
+    raises.  A successful launch adds one to ``LAUNCHES[name]``."""
+    import torch
+    fn = getattr(load_library(name), name)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1

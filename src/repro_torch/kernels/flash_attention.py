@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from .build import load_library
+from .build import launch
 from .ref import NEG_INF, attention_mask
 
 #: head dims the kernels are instantiated for
@@ -30,12 +30,9 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 #: S and T must be multiples of this (the kernels' largest tile edge)
 TILE = 64
 
-#: launches per kernel, counted where the kernel is launched and nowhere else
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (q, k, v, ..., B, S, T, H, Kv, hd, causal, window, scale, is_bf16, stream)
-_TAIL = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _VP]
+# (q, k, v, ..., B, S, T, H, Kv, hd, causal, window, scale, is_bf16[, stream])
+_TAIL = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _I]
 _ARGTYPES = {
     "flash_fwd": [_VP] * 5 + _TAIL,           # q k v o lse
     "flash_dq": [_VP] * 7 + _TAIL,            # q k v do lse delta dq
@@ -85,19 +82,11 @@ def _check(q, k, v, window, *more):
 
 
 def _launch(name: str, q, ptrs, dims, causal, window, scale):
-    fn = getattr(load_library(name), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = _I
     B, S, T, H, Kv, hd = dims
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[t.data_ptr() for t in ptrs], B, S, T, H, Kv, hd,
-                 int(bool(causal)), int(window) if window is not None else 0,
-                 _scale(hd, scale), int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
-                           f"(dims B,S,T,H,Kv,hd = {dims}, dtype {q.dtype})")
-    LAUNCHES[name] += 1
+    launch(name, _ARGTYPES[name], q.device, *[t.data_ptr() for t in ptrs],
+           B, S, T, H, Kv, hd, int(bool(causal)),
+           int(window) if window is not None else 0, _scale(hd, scale),
+           int(q.dtype == torch.bfloat16))
 
 
 def flash_fwd_cuda(q, k, v, causal=True, window=None, scale=None):

@@ -5,7 +5,10 @@
   fallback from one to the other;
 * ``flash_attention`` is one ``torch.autograd.Function`` wiring the recompute
   backward (dq kernel, then dk/dv kernel) from the saved ``(q,k,v,o,lse)``;
-* ``LAUNCHES`` counts kernel launches (see ``flash_attention.LAUNCHES``).
+  ``rmsnorm`` and ``ssd_chunk`` are ``torch.autograd.Function``s whose
+  backward is autograd of the plain version (the TPU kernels have none);
+  ``fused_adam`` updates one leaf in place;
+* ``LAUNCHES`` counts the launches of all six kernels (``build.LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -13,7 +16,11 @@ from __future__ import annotations
 import torch
 
 from . import flash_attention as _fa
-from .flash_attention import LAUNCHES  # noqa: F401  (re-export)
+from . import fused_adam as _ad
+from .build import LAUNCHES  # noqa: F401  (re-export)
+from .ref import from_heads, to_heads
+from .rmsnorm import RMSNorm
+from .ssd_chunk import SSDChunk
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -68,3 +75,34 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
     """q: (B,S,H,hd); k/v: (B,T,Kv,hd).  Returns (B,S,H,hd)."""
     return _FlashAttention.apply(q, k, v, causal, window)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """x: (..., d); scale: (d,) fp32.  ``x·rsqrt(mean(x²)+eps)·(1+scale)`` in
+    fp32, cast once to x's dtype."""
+    return RMSNorm.apply(x, scale, eps)
+
+
+def fused_adam(p, g, m, v, count, lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0):
+    """One AdamW step on one leaf of any shape, **in place** on ``p``, ``m``
+    and ``v``.  ``count``: the post-increment step, an int32 tensor on the
+    leaf's device."""
+    if _on_cpu(p):
+        _ad.fused_adam_plain(p, g, m, v, count, lr, b1, b2, eps, weight_decay)
+    else:
+        _ad.fused_adam_cuda(p, g, m, v, count, lr, b1, b2, eps, weight_decay)
+
+
+def ssd_chunk_heads(x, dt, b, c, a):
+    """SSD within chunks in the model's layout (see ``kernels/ssd_chunk.py``):
+    x (Bt,nc,Q,H,hp), dt (Bt,nc,Q,H), b/c (Bt,nc,Q,G,N), a (H,).  Returns
+    (y (Bt,nc,Q,H,hp), states (Bt,nc,H,N,hp) fp32, cum (Bt,nc,Q,H) fp32)."""
+    return SSDChunk.apply(x, dt, b, c, a)
+
+
+def ssd_chunk(x, dt, b, c, a):
+    """The reference's signature and layout: x (BH,nc,Q,hp); dt (BH,nc,Q);
+    b/c (BH,nc,Q,N); a (BH,).  Returns (y_intra (BH,nc,Q,hp), states
+    (BH,nc,N,hp) fp32, cum (BH,nc,Q) fp32) — views into the model-layout
+    outputs (Bt = 1, one group per head)."""
+    return from_heads(*ssd_chunk_heads(*to_heads(x, dt, b, c), a))

@@ -14,6 +14,8 @@ Responsibilities beyond the step:
 Runs on the GPU unless ``device="cpu"`` / ``--device cpu`` is given:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
       --steps 20 --batch 4 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+      --steps 20 --batch 4 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b --smoke \
       --device cpu --steps 20 --ckpt-dir ckpt_smoke
 """
@@ -165,8 +167,9 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    # the port's CLI trains through the flash kernels (the model keeps the
-    # gate S % 128 == 0 and takes the chunked / dense branch otherwise)
+    # the port's CLI trains through the hand-written kernels: flash attention
+    # (the model keeps the gate S % 128 == 0 and takes the chunked / dense
+    # branch otherwise), rmsnorm and ssd_chunk; AdamW always takes fused_adam
     cfg = replace(cfg, use_flash=True)
     shape = get_shape(args.shape)
 

@@ -1,10 +1,15 @@
 """The composable decoder-only model, assembled from a ModelConfig.
 
-This slice covers the dense decoder: mixers ``attn`` and ``local``, with an
-MLP or none.  The layer stack follows the reference's parameter layout — the
-smallest repeating block pattern (``cfg.scan_period()``) with parameters
-stacked along a leading dimension, plus a remainder for patterns that don't
-divide ``n_layers`` — but walks it with a Python loop instead of a scan.
+Mixers ``attn``, ``local`` (GQA attention) and ``mamba`` (Mamba-2 SSD), with
+an MLP or none; ``mla`` and MoE layers wait for their slices.  With
+``cfg.use_flash`` every RMSNorm (``ln1``, ``ln2``, ``final_norm``) is the
+hand-written kernel (``kernels.ops.rmsnorm``: fp32 product, one cast);
+without it, ``layers.rmsnorm`` (the reference model's rounding order).
+
+The layer stack follows the reference's parameter layout — the smallest
+repeating block pattern (``cfg.scan_period()``) with parameters stacked along
+a leading dimension, plus a remainder for patterns that don't divide
+``n_layers`` — but walks it with a Python loop instead of a scan.
 
 Activation checkpointing: ``cfg.remat == "none"`` keeps everything; any other
 policy recomputes the whole period body in the backward pass
@@ -18,11 +23,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device, torch_dtype
+from ..kernels import ops
 from .attention import attn_specs, gqa_attention
 from .layers import (PSpec, embed_lookup, materialize, mlp_apply, mlp_specs,
                      rmsnorm, rmsnorm_spec, stack_specs)
+from .ssm import ssd_apply, ssm_specs
 
-_LATER = {"mla": "MLA", "mamba": "SSM"}
+_LATER = {"mla": "MLA"}
 
 
 # ---------------------------------------------------------------------------
@@ -34,6 +41,8 @@ def block_specs(cfg, spec) -> dict:
     out = {"ln1": rmsnorm_spec(cfg.d_model)}
     if spec.mixer in ("attn", "local"):
         out["attn"] = attn_specs(cfg)
+    elif spec.mixer == "mamba":
+        out["mixer"] = ssm_specs(cfg)
     elif spec.mixer in _LATER:
         raise NotImplementedError(
             f"mixer {spec.mixer!r} is not ported yet: it waits for the "
@@ -85,17 +94,25 @@ def init_params(cfg, seed: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
+def _norm(x, scale, cfg):
+    if cfg.use_flash:
+        return ops.rmsnorm(x, scale, cfg.norm_eps)
+    return rmsnorm(x, scale, cfg.norm_eps)
+
+
 def _apply_layer(prm, x, cfg, spec, positions):
-    h = rmsnorm(x, prm["ln1"]["scale"], cfg.norm_eps)
+    h = _norm(x, prm["ln1"]["scale"], cfg)
     if spec.mixer == "attn":
         mix = gqa_attention(prm["attn"], h, cfg, positions, window=None)
     elif spec.mixer == "local":
         mix = gqa_attention(prm["attn"], h, cfg, positions, window=cfg.window)
+    elif spec.mixer == "mamba":
+        mix = ssd_apply(prm["mixer"], h, cfg)
     else:
         raise NotImplementedError(f"mixer {spec.mixer!r} waits for a later slice")
     x = x + mix
     if cfg.mlp != "none":
-        h2 = rmsnorm(x, prm["ln2"]["scale"], cfg.norm_eps)
+        h2 = _norm(x, prm["ln2"]["scale"], cfg)
         x = x + mlp_apply(prm["mlp"], h2, cfg)
     return x
 
@@ -143,7 +160,7 @@ def forward_hidden(params, cfg, inputs, positions=None):
     for j, prm in sorted(params.get("rem", {}).items(), key=lambda kv: int(kv[0])):
         x = _apply_layer(prm, x, cfg, specs[n_full * period + int(j)], positions)
 
-    x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    x = _norm(x, params["final_norm"]["scale"], cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
 

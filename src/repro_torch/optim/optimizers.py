@@ -9,8 +9,10 @@ parameter model does not hold two copies of its state.  Callers must not keep
 the old values.
 
 This slice ports AdamW; the other optimizers of the reference raise until
-their slice.  The update is plain PyTorch — the reference computes it outside
-any kernel too.
+their slice.  The update is ``kernels.ops.fused_adam``, one call per leaf:
+the plain PyTorch version for CPU tensors, the CUDA kernel for CUDA tensors
+(the same fp32 formula; the reference's optimizer computes it outside its
+kernel, the port goes through the kernel).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from .. import torch_dtype
 from ..convert import tree_leaves, tree_map
+from ..kernels import ops
 
 
 @dataclass(frozen=True)
@@ -76,21 +79,11 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     @torch.no_grad()
     def update(grads, state, params, step):
         count = state["count"] + 1
-        lr_t = lr_fn(step)
-        c1 = 1.0 - b1 ** count.float()
-        c2 = 1.0 - b2 ** count.float()
+        lr_t = float(lr_fn(step))
 
         def upd(p, g, m, v):
-            # fp32 math; weight decay acts on the old p
-            g32 = g.float()
-            m32 = b1 * m.float() + (1 - b1) * g32
-            v32 = b2 * v.float() + (1 - b2) * torch.square(g32)
-            step_ = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
-            p32 = p.float()
-            p.copy_(p32 - lr_t * (step_ + weight_decay * p32))
-            m.copy_(m32)
-            v.copy_(v32)
-            return p
+            # fp32 math; weight decay acts on the old p; in place
+            ops.fused_adam(p, g, m, v, count, lr_t, b1, b2, eps, weight_decay)
 
         tree_map(upd, params, grads, state["m"], state["v"])
         return params, {"m": state["m"], "v": state["v"], "count": count}

@@ -131,9 +131,8 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     before = dict(ops.LAUNCHES)
     _, (q, k, v, _) = inputs(6, 1, 64, 64, 2, 1, 16)
     ops.flash_attention(q, k, v)
-    assert ops.LAUNCHES == before == {"flash_fwd": before["flash_fwd"],
-                                      "flash_dq": before["flash_dq"],
-                                      "flash_dkv": before["flash_dkv"]}
+    assert ops.LAUNCHES == before
+    assert {"flash_fwd", "flash_dq", "flash_dkv"} <= set(before)
 
 
 @pytest.mark.parametrize("bad", ["cpu_tensor", "head_dim", "seq", "dtype", "t_lt_s",
