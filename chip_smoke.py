@@ -10,6 +10,9 @@ Phases, each printing one JSON line (or a few):
   build       compiles the CUDA kernels from src/repro_torch/kernels/csrc
   kernels     each of the six kernels against its plain PyTorch version on
               the card: fp32 at small shapes, bf16 at the training shapes;
+              the flash kernels' small shapes also in bf16 (the tensor-core
+              forward and dk/dv kernels), beside the library's own bf16 error,
+              and a profiler check of which device kernel each dtype runs;
               times each kernel, its plain version and the library call, and
               computes its bound
   train       Trainer.fit on full-width, full-depth gemma3-1b at S=4096
@@ -27,6 +30,7 @@ non-zero and the last line is not printed.  There is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -68,16 +72,22 @@ TRAIN_STEPS = 6
 TRAIN_BATCH = 4
 SEQ = 4096
 
+TC_PATH = ("mma.sync.aligned.m16n8k16 bf16 x bf16 -> fp32 (tensor cores), ldmatrix, "
+           "cp.async two-stage ring")
+FMA_PATH = "fp32 FMA from fp32 shared tiles (no tensor cores)"
 KERNELS = {
     "flash_fwd": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
-                  "replaces": "src/repro/kernels/flash_attention.py:100"},
+                  "replaces": "src/repro/kernels/flash_attention.py:100",
+                  "bf16_path": "flash_fwd_tc_kernel: " + TC_PATH},
     "flash_dq": {"route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_dq.cu",
-                 "replaces": "src/repro/kernels/flash_attention.py:209"},
+                 "replaces": "src/repro/kernels/flash_attention.py:209",
+                 "bf16_path": "flash_dq_kernel: " + FMA_PATH},
     "flash_dkv": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/flash_dkv.cu",
-                  "replaces": "src/repro/kernels/flash_attention.py:227"},
+                  "replaces": "src/repro/kernels/flash_attention.py:227",
+                  "bf16_path": "flash_dkv_tc_kernel: " + TC_PATH},
     "rmsnorm": {"route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "replaces": "src/repro/kernels/rmsnorm.py:28"},
@@ -89,6 +99,9 @@ KERNELS = {
                   "replaces": "src/repro/kernels/ssd_chunk.py:62"},
 }
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+#: the flash kernels whose bf16 inputs run on the tensor cores; their device
+#: kernels are named fa::<name>_tc_kernel (bf16) and fa::<name>_kernel (fp32)
+TENSOR_CORE = ("flash_fwd", "flash_dkv")
 
 
 def emit(phase: str, **kw) -> None:
@@ -125,7 +138,17 @@ def phase_build() -> None:
     info = build.BUILD_INFO
     emit("build", seconds=round(info["seconds"], 2), built=info["built"],
          libraries={n: os.path.relpath(p, ROOT) for n, p in info["paths"].items()},
-         ptxas=info.get("ptxas"))
+         ptxas=info["ptxas"])
+    # ptxas' report of every tensor-core kernel (kept beside a cached library)
+    # must be there, one per head dim, and show no spill bytes
+    for name in TENSOR_CORE:
+        tc = [k for k in info["ptxas"][name] if "_tc_kernel" in k["kernel"]]
+        if len(tc) != len(fa.HEAD_DIMS) or not all("spill_stores" in k for k in tc):
+            raise AssertionError(f"{name}: no complete ptxas report of its tensor-core "
+                                 f"kernels: {tc}")
+        spilled = [k for k in tc if k["spill_stores"] + k["spill_loads"]]
+        if spilled:
+            raise AssertionError(f"tensor-core kernels spill registers: {spilled}")
 
 
 # ---------------------------------------------------------------------------
@@ -158,10 +181,38 @@ def expect_close(name, got, want, atol, rtol, what) -> float:
     return max_err(got, want)
 
 
-def check_case(case, dtype, tol_fwd, tol_grad, seed) -> dict:
+#: bf16 checks beside the elementwise 2e-2: each row (over hd) of o, dq, dk
+#: and dv within this relative 2-norm error, three bf16 ulps (2^-8), and lse,
+#: which stays fp32, within BF16_LSE_ATOL.  Held to its own magnitude, a row
+#: cannot hide a fault behind an absolute tolerance larger than its values.
+BF16_ROW_RTOL = 3 * 2 ** -8
+BF16_LSE_ATOL = 1e-4
+
+
+def row_rel_err(got, want) -> float:
+    """Largest relative 2-norm error of one row (the last dim): a fault
+    confined to a few rows reads at its own size.  A row below 2^-8 of the
+    median row's norm is held to that floor instead: such a row is a sum
+    that cancels to rounding noise (dq of a query that sees one key: ds =
+    p·(dp − delta) with p = 1 and dp = delta), which has no relative error
+    to speak of.  A row that should be 0 must be 0."""
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    num, den = (g - w).norm(dim=-1), w.norm(dim=-1)
+    den = den.clamp_min(2 ** -8 * float(den.median()))
+    return float(torch.where(num == 0, 0.0, num / den).max())
+
+
+def check_case(case, dtype, tol_fwd, tol_grad, seed, library=False, faults=False) -> dict:
     """All three kernels against their plain versions on the same inputs.
     The backward kernels and their plain versions both get the plain
-    forward's ``lse`` and ``delta``, so each comparison stands alone."""
+    forward's ``lse`` and ``delta``, so each comparison stands alone.  In
+    bf16 also the row and lse checks above, returned under ``"row_rel"`` and
+    ``"lse_abs"``.  With ``library``, also returns under ``"library"`` the
+    errors of ``F.scaled_dot_product_attention`` (o, and dk/dv of its
+    autograd backward) against the same plain versions: a yardstick of what
+    the dtype costs, never called by the port.  With ``faults``, what the
+    bf16 checks read on planted faults (``planted_faults``)."""
     B, S, T, H, Kv, hd, causal, window = case
     q, k, v, do = make_inputs(seed, B, S, T, H, Kv, hd, dtype)
     o, lse = fa.flash_fwd_cuda(q, k, v, causal, window)
@@ -175,9 +226,113 @@ def check_case(case, dtype, tol_fwd, tol_grad, seed) -> dict:
     pairs = {"flash_fwd": [(o, o_p, tol_fwd), (lse, lse_p, tol_fwd)],
              "flash_dq": [(dq, dq_p, tol_grad)],
              "flash_dkv": [(dk, dk_p, tol_grad), (dv, dv_p, tol_grad)]}
-    return {name: max(expect_close(name, a, b, tol, tol, f"{case} {dtype}")
+    errs = {name: max(expect_close(name, a, b, tol, tol, f"{case} {dtype}")
                       for a, b, tol in lst)
             for name, lst in pairs.items()}
+    if dtype == torch.bfloat16:
+        errs["row_rel"] = {"flash_fwd": row_rel_err(o, o_p), "flash_dq": row_rel_err(dq, dq_p),
+                           "flash_dkv": max(row_rel_err(dk, dk_p), row_rel_err(dv, dv_p))}
+        errs["lse_abs"] = max_err(lse, lse_p)
+        if max(errs["row_rel"].values()) > BF16_ROW_RTOL or errs["lse_abs"] > BF16_LSE_ATOL:
+            raise AssertionError(f"bf16 kernels disagree with their plain versions at {case}: "
+                                 f"row relative errors {errs['row_rel']} (tolerance "
+                                 f"{BF16_ROW_RTOL}), lse {errs['lse_abs']:.3e} "
+                                 f"(tolerance {BF16_LSE_ATOL})")
+    if library:
+        lo, ldk, ldv = library_outputs(case, q, k, v, do)
+        errs["library"] = {"flash_fwd": max_err(lo, o_p),
+                           "flash_dkv": max(max_err(ldk, dk_p), max_err(ldv, dv_p))}
+        errs["library_row_rel"] = {
+            "flash_fwd": row_rel_err(lo, o_p),
+            "flash_dkv": max(row_rel_err(ldk.to(dtype), dk_p), row_rel_err(ldv.to(dtype), dv_p))}
+    if faults:
+        errs["planted_faults"] = planted_faults(case, q, k, v, do, o_p, lse_p, delta, dk_p, dv_p)
+    return errs
+
+
+def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dk_p, dv_p) -> dict:
+    """What the bf16 checks read on three faults a kernel could have, each
+    built in fp32 from the plain formulas at ``case`` and rounded as the
+    kernel rounds its output: the forward dropping the last key tile (32
+    keys, the tensor-core kernel's tile at hd 256) of the last query tile of
+    batch 0; the forward not rescaling its output accumulator when the row
+    max grows (the same rows); dk/dv dropping the first query tile (64 rows)
+    that sees the key block in the middle of batch 0, kv head 0.  Each must
+    read above its tolerance, so that the check at this shape can fail a
+    wrong kernel."""
+    B, S, T, H, Kv, hd, causal, window = case
+    G, scale, bn = H // Kv, fa._scale(hd, None), 32
+    mask = fa.attention_mask(S, T, causal, window, q.device)
+    f32 = lambda t: t.float()
+
+    # forward, rows [S - 64, S) of batch 0, every head: s (H, 64, T)
+    r0, vis = S - 64, mask[S - 64:]
+    qb = f32(q[0, r0:]).transpose(0, 1)
+    kh = f32(k[0]).repeat_interleave(G, dim=1).transpose(0, 1)
+    vh = f32(v[0]).repeat_interleave(G, dim=1).transpose(0, 1)
+    s = qb @ kh.transpose(1, 2) * scale
+    last = (int(vis[-1].nonzero().max()) // bn) * bn
+    dropped = vis.clone()
+    dropped[:, last:last + bn] = False
+    sd = torch.where(dropped, s, fa.NEG_INF)
+    o_drop = torch.softmax(sd, dim=-1) @ vh
+    m = torch.full(s.shape[:2], fa.NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qb)
+    for j in range(0, T, bn):
+        sj, mj = s[..., j:j + bn], vis[:, j:j + bn]
+        m_new = torch.maximum(m, torch.where(mj, sj, fa.NEG_INF).max(dim=-1).values)
+        pj = torch.where(mj, torch.exp(sj - m_new[..., None]), 0.0)
+        l = l * torch.exp(m - m_new) + pj.sum(dim=-1)
+        acc = acc + pj @ vh[:, j:j + bn]          # the fault: acc not rescaled
+        m = m_new
+    o_want = o_p[0, r0:].transpose(0, 1)
+    out = {"fwd_last_key_tile_dropped": {
+               "o_row_rel": row_rel_err(o_drop.to(o_p.dtype), o_want),
+               "lse_abs": max_err(torch.logsumexp(sd, dim=-1), lse_p[0, :, r0:])},
+           "fwd_output_not_rescaled": {
+               "o_row_rel": row_rel_err((acc / l[..., None]).to(o_p.dtype), o_want)}}
+
+    # dk/dv of keys [k0, k0 + 64), kv head 0 (q heads 0 .. G-1), batch 0,
+    # without query rows [i0, i0 + 64)
+    k0 = (T // 2 // 64) * 64
+    i0 = (int(mask[:, k0:k0 + 64].any(dim=-1).nonzero().min()) // 64) * 64
+    qi, doi = f32(q[0, i0:i0 + 64, :G]), f32(do[0, i0:i0 + 64, :G])
+    kk, vv = f32(k[0, k0:k0 + 64, 0]), f32(v[0, k0:k0 + 64, 0])
+    st = torch.einsum("qhd,kd->hqk", qi, kk) * scale
+    st = torch.where(mask[i0:i0 + 64, k0:k0 + 64], st, fa.NEG_INF)
+    p = torch.exp(st - lse_p[0, :G, i0:i0 + 64, None])
+    dp = torch.einsum("qhd,kd->hqk", doi, vv)
+    ds = p * (dp - delta[0, :G, i0:i0 + 64, None]) * scale
+    dk_want, dv_want = dk_p[0, k0:k0 + 64, 0], dv_p[0, k0:k0 + 64, 0]
+    dk_bad = f32(dk_want) - torch.einsum("hqk,qhd->kd", ds, qi)
+    dv_bad = f32(dv_want) - torch.einsum("hqk,qhd->kd", p, doi)
+    out["dkv_first_query_tile_dropped"] = {
+        "dk_row_rel": row_rel_err(dk_bad.to(dk_p.dtype), dk_want),
+        "dv_row_rel": row_rel_err(dv_bad.to(dv_p.dtype), dv_want)}
+
+    missed = {f"{fault}.{key}": x for fault, r in out.items() for key, x in r.items()
+              if x <= (BF16_LSE_ATOL if key == "lse_abs" else BF16_ROW_RTOL)}
+    if missed:
+        raise AssertionError(f"the bf16 checks at {case} cannot see planted faults: {missed}")
+    return out
+
+
+def library_outputs(case, q, k, v, do):
+    """o, dk, dv of ``F.scaled_dot_product_attention`` in the inputs' dtype,
+    in the port's layouts, the GQA group summed (in fp32) over the repeated
+    heads."""
+    B, S, T, H, Kv, hd, causal, window = case
+    G = H // Kv
+    ql = q.transpose(1, 2).detach().requires_grad_(True)
+    kl = k.repeat_interleave(G, dim=2).transpose(1, 2).detach().requires_grad_(True)
+    vl = v.repeat_interleave(G, dim=2).transpose(1, 2).detach().requires_grad_(True)
+    mask = (fa.attention_mask(S, T, causal, window, q.device)
+            if causal or window is not None else None)
+    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    _, dkl, dvl = torch.autograd.grad(ol, (ql, kl, vl), do.transpose(1, 2))
+    group = lambda t: t.float().reshape(B, Kv, G, T, hd).sum(2).transpose(1, 2)
+    return ol.detach().transpose(1, 2), group(dkl), group(dvl)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -276,6 +431,54 @@ SMALL_CASES = [
 ]
 
 
+def tc_grid(name, case) -> dict:
+    """Launch geometry of a tensor-core kernel at ``case``, from its library:
+    blocks, resident blocks an SM (the occupancy calculator), threads and
+    dynamic shared memory a block."""
+    B, S, T, H, Kv, hd, _, _ = case
+    fn = getattr(build.load_library(name), name + "_grid")
+    dims = (B, S, H, hd) if name == "flash_fwd" else (B, T, Kv, hd)
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    if fn(*dims, out) != 0:
+        raise RuntimeError(f"{name}_grid failed for {case}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"blocks": out[0], "blocks_per_sm": out[1], "threads": out[2],
+            "smem_bytes": out[3], "sms": sms, "waves": out[0] / (out[1] * sms)}
+
+
+def check_dispatch() -> dict:
+    """One bf16 and one fp32 call of each tensor-core kernel's wrapper under
+    torch.profiler: the device kernels that ran must be fa::<name>_tc_kernel
+    for bf16 and the fp32 FMA kernel fa::<name>_kernel<float, …> for fp32."""
+    from torch.profiler import ProfilerActivity, profile
+    case = SMALL_CASES[2]
+    B, S, T, H, Kv, hd, causal, window = case
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = make_inputs(0, B, S, T, H, Kv, hd, dtype)
+        o, lse = fa.flash_fwd_cuda(q, k, v, causal, window)
+        delta = ops.attention_delta(o, do)
+        torch.cuda.synchronize()
+        ran = {}
+        for name, call in (("flash_fwd", lambda: fa.flash_fwd_cuda(q, k, v, causal, window)),
+                           ("flash_dkv", lambda: fa.flash_dkv_cuda(q, k, v, do, lse, delta,
+                                                                   causal, window))):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            ran[name] = sorted({e.key for e in prof.key_averages()
+                                if e.device_type == torch.autograd.DeviceType.CUDA
+                                and "fa::flash_" in e.key})
+            want = (f"fa::{name}_tc_kernel<" if dtype == torch.bfloat16
+                    else f"fa::{name}_kernel<float")
+            if len(ran[name]) != 1 or want not in ran[name][0]:
+                raise AssertionError(f"{name} {dtype}: ran {ran[name]}, expected {want}…")
+        out[str(dtype).replace("torch.", "")] = ran
+    return out
+
+
 def phase_kernels_flash(cfg) -> dict:
     worst = dict.fromkeys(FLASH, 0.0)
     for i, case in enumerate(SMALL_CASES):
@@ -284,22 +487,45 @@ def phase_kernels_flash(cfg) -> dict:
     emit("kernels_fp32", cases=len(SMALL_CASES), tol_fwd=2e-5, tol_grad=5e-5,
          max_abs_err=worst)
 
+    # the same cases in bf16 against the fp32 plain version of the same bf16
+    # inputs, beside the library's bf16 error there
+    per_case = []
+    for i, case in enumerate(SMALL_CASES):
+        errs = check_case(case, torch.bfloat16, 2e-2, 2e-2, seed=i, library=True)
+        per_case.append({"case": case, "lse_abs": errs["lse_abs"],
+                         **{n: {"kernel": errs[n], "library": errs["library"][n],
+                                "kernel_row_rel": errs["row_rel"][n],
+                                "library_row_rel": errs["library_row_rel"][n]}
+                            for n in TENSOR_CORE}})
+    worst = lambda key: {n: max(c[n][key] for c in per_case) for n in TENSOR_CORE}
+    emit("kernels_bf16_small", cases=len(SMALL_CASES), tol=2e-2, rtol=2e-2,
+         tol_row_rel=BF16_ROW_RTOL, tol_lse=BF16_LSE_ATOL,
+         max_abs_err=worst("kernel"), library_max_abs_err=worst("library"),
+         max_row_rel_err=worst("kernel_row_rel"), library_max_row_rel_err=worst("library_row_rel"),
+         max_lse_abs_err=max(c["lse_abs"] for c in per_case), by_case=per_case)
+    emit("kernels_dispatch", ran=check_dispatch())
+
     # bf16 at the shapes the training run gives the kernels: a global layer
     # (window None) and a sliding-window layer
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     out = {}
     for tag, window in (("global", None), ("window", cfg.window)):
         case = (TRAIN_BATCH, SEQ, SEQ, H, Kv, hd, True, window)
-        errs = check_case(case, torch.bfloat16, 2e-2, 2e-2, seed=100)
+        errs = check_case(case, torch.bfloat16, 2e-2, 2e-2, seed=100, faults=True)
         torch.cuda.empty_cache()
         timed = time_case(case, torch.bfloat16, reps=5)
         torch.cuda.empty_cache()
         for name in FLASH:
             timed[name]["max_abs_err"] = errs[name]
+            timed[name]["max_row_rel_err"] = errs["row_rel"][name]
+        timed["flash_fwd"]["lse_abs_err"] = errs["lse_abs"]
+        for name in TENSOR_CORE:
+            timed[name]["grid"] = tc_grid(name, case)
         out[tag] = timed
         emit("kernels_bf16", layer=tag, shape=dict(zip(
             ("B", "S", "T", "H", "Kv", "hd", "causal", "window"), case, strict=True)),
-            tol=2e-2, kernels=timed)
+            tol=2e-2, tol_row_rel=BF16_ROW_RTOL, tol_lse=BF16_LSE_ATOL, kernels=timed,
+            planted_faults=errs["planted_faults"])
     return out
 
 
@@ -683,7 +909,8 @@ def profile_step(tr, params, opt_state, phase: str) -> None:
         raise AssertionError("the profiler recorded no device activity")
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    groups = {"flash_attention": ("fa::flash_",), "ssd_chunk": ("ssd::ssd_chunk",),
+    groups = {"flash_fwd": ("fa::flash_fwd",), "flash_dq": ("fa::flash_dq",),
+              "flash_dkv": ("fa::flash_dkv",), "ssd_chunk": ("ssd::ssd_chunk",),
               "rmsnorm": ("rn::rmsnorm",), "fused_adam": ("adam::adam",),
               "matmul": ("nvjet", "gemm", "cutlass"),
               "elementwise": ("elementwise",), "reduce": ("reduce",),
@@ -800,14 +1027,26 @@ def main() -> None:
             if name in FLASH:
                 g, w = timed["global"][name], timed["window"][name]
                 entry.update({"max_abs_err": max(g["max_abs_err"], w["max_abs_err"]),
-                              "tol": 2e-2, "rtol": 2e-2, "ms": g["ms"], "plain_ms": g["plain_ms"],
+                              "tol": 2e-2, "rtol": 2e-2,
+                              "max_row_rel_err": max(g["max_row_rel_err"],
+                                                     w["max_row_rel_err"]),
+                              "tol_row_rel": BF16_ROW_RTOL,
+                              "ms": g["ms"], "plain_ms": g["plain_ms"],
                               "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
-                              "library_ms": g["library_ms"],
+                              "library_ms": g["library_ms"], "grid": g.get("grid"),
                               "shape": f"bf16 B={TRAIN_BATCH} S=T={SEQ} H={gemma.n_heads} "
                                        f"Kv={gemma.n_kv_heads} hd={gemma.head_dim_} causal",
                               "window_layer": {"window": gemma.window, **{
                                   key: w[key] for key in ("ms", "plain_ms", "bound_ms",
                                                           "bound_by", "library_ms")}}})
+                if name != "flash_fwd":
+                    # the library's backward computes dq, dk and dv in one call
+                    entry["library_note"] = ("whole autograd backward of "
+                                             "F.scaled_dot_product_attention (dq, dk, dv): "
+                                             "compare with flash_dq + flash_dkv")
+                    entry["dq_plus_dkv_ms"] = {
+                        layer: timed[layer]["flash_dq"]["ms"] + timed[layer]["flash_dkv"]["ms"]
+                        for layer in ("global", "window")}
             else:
                 t = timed["more"][name]
                 entry.update({"max_abs_err": t["max_abs_err"], "tol": t.get("tol", 2e-2),

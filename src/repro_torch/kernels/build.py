@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/lib<name>_<hash>.so`` (the hash covers the
 sources and the flags, so an edited source is rebuilt) and loaded with
 ``ctypes``.  All sources are compiled in parallel, one ``nvcc`` each.  A
-failed build raises with the compiler's output; nothing falls back.
+failed build raises with the compiler's output; nothing falls back.  Beside
+each library, ``lib<name>_<hash>.ptxas.json`` keeps what ``ptxas`` reported
+for its kernels (registers, spill bytes), so a cached build still reports it.
 
 The build directory is ``build/`` at the repository root, or
 ``$REPRO_TORCH_BUILD_DIR``.
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -31,6 +34,7 @@ LAUNCHES = dict.fromkeys(SOURCES, 0)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: filled by the build: seconds, and ptxas' per-kernel resource lines
+#: of every library, built now or cached
 BUILD_INFO: dict = {}
 
 
@@ -62,7 +66,8 @@ def build_all() -> dict[str, Path]:
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = _digest()
     paths = {name: out_dir / f"lib{name}_{tag}.so" for name in SOURCES}
-    todo = [n for n in SOURCES if not paths[n].exists()]
+    reports = {name: p.with_suffix(".ptxas.json") for name, p in paths.items()}
+    todo = [n for n in SOURCES if not (paths[n].exists() and reports[n].exists())]
     t0 = time.time()
     if todo:
         nvcc = find_nvcc()
@@ -79,11 +84,12 @@ def build_all() -> dict[str, Path]:
             if proc.returncode != 0:
                 failed.append(name)
             else:
+                reports[name].write_text(json.dumps(_ptxas_summary(logs[name])))
                 os.replace(tmp, paths[name])
         if failed:
             raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
                                "\n".join(logs[n] for n in failed))
-        BUILD_INFO["ptxas"] = {n: _ptxas_summary(logs[n]) for n in todo}
+    BUILD_INFO["ptxas"] = {n: json.loads(reports[n].read_text()) for n in SOURCES}
     BUILD_INFO["seconds"] = time.time() - t0
     BUILD_INFO["built"] = todo
     BUILD_INFO["paths"] = paths

@@ -19,6 +19,9 @@
 // Everything in shared memory is fp32 whatever the input type (bf16 is
 // widened on the way in), every product is an fp32 FMA and every sum is fp32:
 // fp32 inputs are computed in IEEE fp32, bf16 inputs accumulate in fp32.
+// The forward and dk/dv kernels take this path for fp32 inputs only; their
+// bf16 inputs go to tensor-core kernels (flash_mma.cuh).  dq takes it for
+// both types.
 // Rows are padded by 4 floats so that float4 reads of 8 neighbouring rows fall
 // into 8 different 16-byte bank groups.
 #pragma once
@@ -238,25 +241,17 @@ __device__ __forceinline__ void query_tile_range(int k0, int BN, int BM, int off
 
 }  // namespace fa
 
-// Dispatch on (is_bf16, head_dim) to a launcher template LAUNCH<T, D>(args...).
-#define FA_DISPATCH(LAUNCH, is_bf16, hd, ...)                                       \
-  do {                                                                              \
-    if (is_bf16) {                                                                  \
-      switch (hd) {                                                                 \
-        case 16: return LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__);                     \
-        case 32: return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);                     \
-        case 64: return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);                     \
-        case 128: return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);                   \
-        case 256: return LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__);                   \
-      }                                                                             \
-    } else {                                                                        \
-      switch (hd) {                                                                 \
-        case 16: return LAUNCH<float, 16>(__VA_ARGS__);                             \
-        case 32: return LAUNCH<float, 32>(__VA_ARGS__);                             \
-        case 64: return LAUNCH<float, 64>(__VA_ARGS__);                             \
-        case 128: return LAUNCH<float, 128>(__VA_ARGS__);                           \
-        case 256: return LAUNCH<float, 256>(__VA_ARGS__);                           \
-      }                                                                             \
-    }                                                                               \
-    return (int)cudaErrorInvalidValue;                                              \
+// Dispatch on the head dim to a launcher template LAUNCH<D>(args...); any
+// other head dim returns cudaErrorInvalidValue.  The one list of the head
+// dims the kernels are instantiated for (HEAD_DIMS in flash_attention.py).
+#define FA_SWITCH_HD(LAUNCH, hd, ...)            \
+  do {                                           \
+    switch (hd) {                                \
+      case 16: return LAUNCH<16>(__VA_ARGS__);   \
+      case 32: return LAUNCH<32>(__VA_ARGS__);   \
+      case 64: return LAUNCH<64>(__VA_ARGS__);   \
+      case 128: return LAUNCH<128>(__VA_ARGS__); \
+      case 256: return LAUNCH<256>(__VA_ARGS__); \
+    }                                            \
+    return (int)cudaErrorInvalidValue;           \
   } while (0)

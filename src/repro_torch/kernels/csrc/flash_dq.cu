@@ -117,6 +117,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return (int)cudaGetLastError();
 }
 
+// launchers of the head dim alone, for FA_SWITCH_HD
+template <int D, typename... A>
+int launch_dq_bf16(A... a) {
+  return launch_dq<__nv_bfloat16, D>(a...);
+}
+template <int D, typename... A>
+int launch_dq_f32(A... a) {
+  return launch_dq<float, D>(a...);
+}
+
 }  // namespace fa
 
 // window <= 0 means no window.  Returns cudaGetLastError() of the launch.
@@ -125,7 +135,9 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
                         int H, int Kv, int hd, int causal, int window, float scale,
                         int is_bf16, void* stream) {
   if (S % fa::DQ_BM || T % fa::DQ_BN || T < S || H % Kv) return (int)cudaErrorInvalidValue;
-  FA_DISPATCH(fa::launch_dq, is_bf16, hd, q, k, v, dout, (const float*)lse,
-              (const float*)delta, dq, B, S, T, H, Kv, causal, window, scale,
-              (cudaStream_t)stream);
+  if (is_bf16)
+    FA_SWITCH_HD(fa::launch_dq_bf16, hd, q, k, v, dout, (const float*)lse, (const float*)delta,
+                 dq, B, S, T, H, Kv, causal, window, scale, (cudaStream_t)stream);
+  FA_SWITCH_HD(fa::launch_dq_f32, hd, q, k, v, dout, (const float*)lse, (const float*)delta, dq,
+               B, S, T, H, Kv, causal, window, scale, (cudaStream_t)stream);
 }

@@ -67,17 +67,20 @@ def _check(q, k, v, window, *more):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype {q.dtype} not supported (float32 or bfloat16)")
     for t in (q, k, v):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError("all tensors must lie on one CUDA device")
         if t.dtype != q.dtype:
             raise TypeError("q, k, v must share one dtype")
         if not t.is_contiguous():
             raise ValueError("q, k, v must be contiguous")
     for t, shape, dtype in more:
-        if (tuple(t.shape) != shape or t.dtype != dtype or t.device != q.device
-                or not t.is_contiguous()):
-            raise ValueError(f"expected contiguous {dtype} {shape} on {q.device}; "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"expected contiguous {dtype} {shape}; "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    tensors = (q, k, v, *(t for t, _, _ in more))
+    # the kernels read rows 16 bytes at a time (float4, cp.async)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("every tensor must start on a 16-byte boundary")
+    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
+        raise ValueError("all tensors must lie on one CUDA device")
     return B, S, T, H, Kv, hd
 
 

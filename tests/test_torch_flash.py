@@ -7,7 +7,9 @@ from numpy with a seed and go to both.
 
 Tolerances are those of tests/test_kernels.py: fp32 2e-5 forward and 5e-5
 gradients (two fp32 summation orders over at most 256 keys), bf16 2e-2 (one
-rounding of the output to 8 bits of mantissa).
+rounding of the output to 8 bits of mantissa; on the card's bf16 kernels also
+the rounding of p and ds before the second products, which
+``test_tensor_core_rounding_fits_the_bf16_tolerance`` states in PyTorch).
 """
 
 import jax
@@ -22,6 +24,9 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: bf16: largest relative 2-norm error of one row (over hd), three bf16 ulps,
+#: as chip_smoke.py holds the tensor-core kernels to it on the card
+ROW_RTOL = 3 * 2 ** -8
 
 
 def inputs(seed, B, S, T, H, Kv, hd, dtype="float32"):
@@ -135,21 +140,85 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     assert {"flash_fwd", "flash_dq", "flash_dkv"} <= set(before)
 
 
-@pytest.mark.parametrize("bad", ["cpu_tensor", "head_dim", "seq", "dtype", "t_lt_s",
-                                 "strided", "window"])
+def tc_arithmetic(q, k, v, do, causal, window):
+    """The arithmetic of the bf16 tensor-core kernels (``flash_fwd_tc_kernel``,
+    ``flash_dkv_tc_kernel``) in plain PyTorch: fp32 products of the bf16
+    inputs, with ``p`` (forward and dk/dv) and ``ds`` (dk/dv) rounded to bf16
+    before they meet ``v``, ``do`` and ``q``; the row sum ``l`` and ``ds`` are
+    formed from the fp32 ``p``.  Returns o, lse, dk, dv (dk/dv summed over
+    the GQA group); the backward uses this o and lse, as training does."""
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    G, scale = H // Kv, hd ** -0.5
+    bf = lambda t: t.to(torch.bfloat16).float()
+    qg = q.float().reshape(B, S, Kv, G, hd)
+    dog = do.float().reshape(B, S, Kv, G, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    s = torch.where(ref.attention_mask(S, T, causal, window, q.device), s, ref.NEG_INF)
+    m = s.max(dim=-1).values
+    p = torch.exp(s - m[..., None])
+    lse = m + torch.log(p.sum(dim=-1))
+    o = torch.einsum("bkgst,btkd->bskgd", bf(p), v.float()) / p.sum(dim=-1).permute(
+        0, 3, 1, 2)[..., None]
+    o = o.reshape(B, S, H, hd).to(q.dtype)
+    delta = ops.attention_delta(o, do).reshape(B, Kv, G, S)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dv = torch.einsum("bkgst,bskgd->btkd", bf(p), dog)
+    dk = torch.einsum("bkgst,bskgd->btkd", bf(ds), qg)
+    return o, lse.reshape(B, H, S), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("window", [None, 16])
+def test_tensor_core_rounding_fits_the_bf16_tolerance(window):
+    """The arithmetic stated in ``tc_arithmetic`` (p and ds rounded to bf16
+    before the second products, which the card's bf16 kernels do and the fp32
+    path does not) stays within the tolerances the card holds those kernels
+    to (2e-2 elementwise, ``ROW_RTOL`` a row) of the Pallas kernels run in
+    interpret mode on the same bf16 inputs.  It checks that statement of the
+    rounding, not the port's code: the kernels themselves are held to the
+    same tolerances by chip_smoke.py on the card."""
+    B, S, T, H, Kv, hd = 1, 128, 256, 4, 2, 32
+    tol = TOL["bfloat16"]
+    (jq, jk, jv, jdo), (q, k, v, do) = inputs(8, B, S, T, H, Kv, hd, "bfloat16")
+    o, lse, dk, dv = tc_arithmetic(q, k, v, do, True, window)
+    o_ref, vjp = jax.vjp(
+        lambda a, b, c: ref_ops.flash_attention(a, b, c, True, window, 64, 64), jq, jk, jv)
+    _, lse_ref = ref_ops._flash_fwd_impl(jq, jk, jv, True, window, 64, 64, None)
+    _, dk_ref, dv_ref = vjp(jdo)
+    np.testing.assert_allclose(f32(o), f32(o_ref), atol=tol, rtol=tol)
+    np.testing.assert_allclose(f32(lse).reshape(B * H, S), f32(lse_ref), atol=2e-5, rtol=2e-5)
+    for a, b in ((dk, dk_ref), (dv, dv_ref)):
+        np.testing.assert_allclose(f32(a), f32(b), atol=tol, rtol=tol)
+    for a, b in ((o, o_ref), (dk, dk_ref), (dv, dv_ref)):
+        a, b = f32(a).reshape(-1, hd), f32(b).reshape(-1, hd)
+        err = np.linalg.norm(a - b, axis=-1)
+        assert np.all(err <= ROW_RTOL * np.linalg.norm(b, axis=-1)), err.max()
+
+
+CONTRACT_CASES = ["cpu_tensor", "head_dim", "seq", "dtype", "t_lt_s", "strided", "window",
+                  "misaligned", "mixed_dtype"]
+
+
+@pytest.mark.parametrize("bad", CONTRACT_CASES + [f"bf16:{c}" for c in CONTRACT_CASES])
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(bad):
-    """The CUDA wrapper never computes anything for inputs outside the
-    kernels' contract, and never falls back to the plain version."""
+    """The CUDA wrappers never compute anything for inputs outside the
+    kernels' contract, and never fall back to the plain version: the forward
+    and the dk/dv wrapper both raise before any launch, for fp32 inputs (the
+    FMA kernels) and bf16 inputs (the tensor-core kernels) alike."""
+    dtype = "bfloat16" if bad.startswith("bf16:") else "float32"
+    bad = bad.removeprefix("bf16:")
     B, S, T, H, Kv, hd = 1, 64, 64, 2, 1, 16
     window = None
-    exc = ValueError
+    exc, match = ValueError, None
     if bad == "head_dim":
         hd = 48
     elif bad == "seq":
         S = T = 96
     elif bad == "t_lt_s":
         S, T = 128, 64
-    _, (q, k, v, _) = inputs(7, B, S, T, H, Kv, hd)
+    _, (q, k, v, _) = inputs(7, B, S, T, H, Kv, hd, dtype)
     if bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
         exc = TypeError
@@ -157,5 +226,18 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(bad):
         q = q.transpose(1, 2)
     elif bad == "window":
         window = 0
-    with pytest.raises(exc):
+    elif bad == "misaligned":
+        # contiguous, but starting one element past a 16-byte boundary
+        q = torch.empty(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape).copy_(q)
+        match = "16-byte"
+    elif bad == "mixed_dtype":
+        k = k.bfloat16() if dtype == "float32" else k.float()
+        exc = TypeError
+    do = torch.zeros(q.shape, dtype=q.dtype)
+    lse, delta = torch.zeros((B, H, S)), torch.zeros((B, H, S))
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(exc, match=match):
         fa.flash_fwd_cuda(q, k, v, True, window)
+    with pytest.raises(exc, match=match):
+        fa.flash_dkv_cuda(q, k, v, do, lse, delta, True, window)
+    assert ops.LAUNCHES == before
