@@ -10,11 +10,12 @@ Phases, each printing one JSON line (or a few):
   build       compiles the CUDA kernels from src/repro_torch/kernels/csrc
   kernels     each of the six kernels against its plain PyTorch version on
               the card: fp32 at small shapes, bf16 at the training shapes;
-              the flash kernels' small shapes also in bf16 (the tensor-core
-              forward and dk/dv kernels), beside the library's own bf16 error,
-              and a profiler check of which device kernel each dtype runs;
-              times each kernel, its plain version and the library call, and
-              computes its bound
+              the flash and SSD kernels' small shapes also in bf16 (their
+              tensor-core kernels), flash beside the library's own bf16 error,
+              planted faults that the bf16 checks must see, and a profiler
+              check of which device kernel each dtype runs; times each
+              kernel, its plain version and the library call, and computes
+              its bound
   train       Trainer.fit on full-width, full-depth gemma3-1b at S=4096
               through the flash, rmsnorm and fused_adam kernels; checks
               losses, launch counts and the checkpoint
@@ -74,7 +75,6 @@ SEQ = 4096
 
 TC_PATH = ("mma.sync.aligned.m16n8k16 bf16 x bf16 -> fp32 (tensor cores), ldmatrix, "
            "cp.async two-stage ring")
-FMA_PATH = "fp32 FMA from fp32 shared tiles (no tensor cores)"
 KERNELS = {
     "flash_fwd": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -83,7 +83,7 @@ KERNELS = {
     "flash_dq": {"route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_dq.cu",
                  "replaces": "src/repro/kernels/flash_attention.py:209",
-                 "bf16_path": "flash_dq_kernel: " + FMA_PATH},
+                 "bf16_path": "flash_dq_tc_kernel: " + TC_PATH},
     "flash_dkv": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/flash_dkv.cu",
                   "replaces": "src/repro/kernels/flash_attention.py:227",
@@ -96,12 +96,19 @@ KERNELS = {
                    "replaces": "src/repro/kernels/fused_adam.py:44"},
     "ssd_chunk": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
-                  "replaces": "src/repro/kernels/ssd_chunk.py:62"},
+                  "replaces": "src/repro/kernels/ssd_chunk.py:62",
+                  "bf16_path": "ssd_chunk_tc_kernel: " + TC_PATH},
 }
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
-#: the flash kernels whose bf16 inputs run on the tensor cores; their device
-#: kernels are named fa::<name>_tc_kernel (bf16) and fa::<name>_kernel (fp32)
-TENSOR_CORE = ("flash_fwd", "flash_dkv")
+#: the kernels whose bf16 inputs run on the tensor cores: (device kernel of
+#: bf16, device kernel of fp32, instantiations in the library) — one per head
+#: dim for flash, one per (hp, N) for the SSD chunk
+TENSOR_CORE = {
+    **{name: (f"fa::{name}_tc_kernel<", f"fa::{name}_kernel<", len(fa.HEAD_DIMS))
+       for name in FLASH},
+    "ssd_chunk": ("ssd::ssd_chunk_tc_kernel<", "ssd::ssd_chunk_kernel<",
+                  len(sc.HEAD_DIMS) * len(sc.STATE_DIMS)),
+}
 
 
 def emit(phase: str, **kw) -> None:
@@ -140,10 +147,10 @@ def phase_build() -> None:
          libraries={n: os.path.relpath(p, ROOT) for n, p in info["paths"].items()},
          ptxas=info["ptxas"])
     # ptxas' report of every tensor-core kernel (kept beside a cached library)
-    # must be there, one per head dim, and show no spill bytes
-    for name in TENSOR_CORE:
+    # must be there, one per instantiation, and show no spill bytes
+    for name, (_, _, count) in TENSOR_CORE.items():
         tc = [k for k in info["ptxas"][name] if "_tc_kernel" in k["kernel"]]
-        if len(tc) != len(fa.HEAD_DIMS) or not all("spill_stores" in k for k in tc):
+        if len(tc) != count or not all("spill_stores" in k for k in tc):
             raise AssertionError(f"{name}: no complete ptxas report of its tensor-core "
                                  f"kernels: {tc}")
         spilled = [k for k in tc if k["spill_stores"] + k["spill_loads"]]
@@ -209,7 +216,7 @@ def check_case(case, dtype, tol_fwd, tol_grad, seed, library=False, faults=False
     forward's ``lse`` and ``delta``, so each comparison stands alone.  In
     bf16 also the row and lse checks above, returned under ``"row_rel"`` and
     ``"lse_abs"``.  With ``library``, also returns under ``"library"`` the
-    errors of ``F.scaled_dot_product_attention`` (o, and dk/dv of its
+    errors of ``F.scaled_dot_product_attention`` (o, and dq and dk/dv of its
     autograd backward) against the same plain versions: a yardstick of what
     the dtype costs, never called by the port.  With ``faults``, what the
     bf16 checks read on planted faults (``planted_faults``)."""
@@ -239,27 +246,29 @@ def check_case(case, dtype, tol_fwd, tol_grad, seed, library=False, faults=False
                                  f"{BF16_ROW_RTOL}), lse {errs['lse_abs']:.3e} "
                                  f"(tolerance {BF16_LSE_ATOL})")
     if library:
-        lo, ldk, ldv = library_outputs(case, q, k, v, do)
-        errs["library"] = {"flash_fwd": max_err(lo, o_p),
+        lo, ldq, ldk, ldv = library_outputs(case, q, k, v, do)
+        errs["library"] = {"flash_fwd": max_err(lo, o_p), "flash_dq": max_err(ldq, dq_p),
                            "flash_dkv": max(max_err(ldk, dk_p), max_err(ldv, dv_p))}
         errs["library_row_rel"] = {
-            "flash_fwd": row_rel_err(lo, o_p),
+            "flash_fwd": row_rel_err(lo, o_p), "flash_dq": row_rel_err(ldq, dq_p),
             "flash_dkv": max(row_rel_err(ldk.to(dtype), dk_p), row_rel_err(ldv.to(dtype), dv_p))}
     if faults:
-        errs["planted_faults"] = planted_faults(case, q, k, v, do, o_p, lse_p, delta, dk_p, dv_p)
+        errs["planted_faults"] = planted_faults(case, q, k, v, do, o_p, lse_p, delta, dq_p,
+                                                dk_p, dv_p)
     return errs
 
 
-def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dk_p, dv_p) -> dict:
-    """What the bf16 checks read on three faults a kernel could have, each
+def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dq_p, dk_p, dv_p) -> dict:
+    """What the bf16 checks read on four faults a kernel could have, each
     built in fp32 from the plain formulas at ``case`` and rounded as the
     kernel rounds its output: the forward dropping the last key tile (32
     keys, the tensor-core kernel's tile at hd 256) of the last query tile of
     batch 0; the forward not rescaling its output accumulator when the row
-    max grows (the same rows); dk/dv dropping the first query tile (64 rows)
-    that sees the key block in the middle of batch 0, kv head 0.  Each must
-    read above its tolerance, so that the check at this shape can fail a
-    wrong kernel."""
+    max grows (the same rows); dq dropping the last key tile (64 keys, its
+    tensor-core kernel's tile) of the same rows; dk/dv dropping the first
+    query tile (64 rows) that sees the key block in the middle of batch 0, kv
+    head 0.  Each must read above its tolerance, so that the check at this
+    shape can fail a wrong kernel."""
     B, S, T, H, Kv, hd, causal, window = case
     G, scale, bn = H // Kv, fa._scale(hd, None), 32
     mask = fa.attention_mask(S, T, causal, window, q.device)
@@ -293,6 +302,17 @@ def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dk_p, dv_p) -> dict:
            "fwd_output_not_rescaled": {
                "o_row_rel": row_rel_err((acc / l[..., None]).to(o_p.dtype), o_want)}}
 
+    # dq of the same rows without the last visible 64-key tile
+    j0 = (int(vis[-1].nonzero().max()) // 64) * 64
+    sj = torch.where(vis[:, j0:j0 + 64], s[..., j0:j0 + 64], fa.NEG_INF)
+    pj = torch.exp(sj - lse_p[0, :, r0:, None])
+    dpj = f32(do[0, r0:]).transpose(0, 1) @ vh[:, j0:j0 + 64].transpose(1, 2)
+    dsj = pj * (dpj - delta[0, :, r0:, None]) * scale
+    dq_want = dq_p[0, r0:].transpose(0, 1)
+    dq_bad = f32(dq_want) - dsj @ kh[:, j0:j0 + 64]
+    out["dq_last_key_tile_dropped"] = {
+        "dq_row_rel": row_rel_err(dq_bad.to(dq_p.dtype), dq_want)}
+
     # dk/dv of keys [k0, k0 + 64), kv head 0 (q heads 0 .. G-1), batch 0,
     # without query rows [i0, i0 + 64)
     k0 = (T // 2 // 64) * 64
@@ -319,9 +339,9 @@ def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dk_p, dv_p) -> dict:
 
 
 def library_outputs(case, q, k, v, do):
-    """o, dk, dv of ``F.scaled_dot_product_attention`` in the inputs' dtype,
-    in the port's layouts, the GQA group summed (in fp32) over the repeated
-    heads."""
+    """o, dq, dk, dv of ``F.scaled_dot_product_attention`` in the inputs'
+    dtype, in the port's layouts, dk and dv summed (in fp32) over the GQA
+    group of repeated heads."""
     B, S, T, H, Kv, hd, causal, window = case
     G = H // Kv
     ql = q.transpose(1, 2).detach().requires_grad_(True)
@@ -330,9 +350,9 @@ def library_outputs(case, q, k, v, do):
     mask = (fa.attention_mask(S, T, causal, window, q.device)
             if causal or window is not None else None)
     ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
-    _, dkl, dvl = torch.autograd.grad(ol, (ql, kl, vl), do.transpose(1, 2))
+    dql, dkl, dvl = torch.autograd.grad(ol, (ql, kl, vl), do.transpose(1, 2))
     group = lambda t: t.float().reshape(B, Kv, G, T, hd).sum(2).transpose(1, 2)
-    return ol.detach().transpose(1, 2), group(dkl), group(dvl)
+    return ol.detach().transpose(1, 2), dql.transpose(1, 2), group(dkl), group(dvl)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -431,18 +451,23 @@ SMALL_CASES = [
 ]
 
 
-def tc_grid(name, case) -> dict:
-    """Launch geometry of a tensor-core kernel at ``case``, from its library:
-    blocks, resident blocks an SM (the occupancy calculator), threads and
-    dynamic shared memory a block."""
-    B, S, T, H, Kv, hd, _, _ = case
+def tc_grid(name, dims) -> dict:
+    """Launch geometry of a tensor-core kernel, from its library's
+    ``<name>_grid`` entry point: blocks, resident blocks an SM (the occupancy
+    calculator), threads and dynamic shared memory a block.  ``dims``: a flash
+    case, or the SSD chunk's (Bt, nc, Q, H, hp, G, N)."""
+    if name == "ssd_chunk":
+        Bt, nc, _, H, hp, _, N = dims
+        args = (Bt, nc, H, hp, N)
+    else:
+        B, S, T, H, Kv, hd, _, _ = dims
+        args = (B, T, Kv, hd) if name == "flash_dkv" else (B, S, H, hd)
     fn = getattr(build.load_library(name), name + "_grid")
-    dims = (B, S, H, hd) if name == "flash_fwd" else (B, T, Kv, hd)
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
-    if fn(*dims, out) != 0:
-        raise RuntimeError(f"{name}_grid failed for {case}")
+    if fn(*args, out) != 0:
+        raise RuntimeError(f"{name}_grid failed for {dims}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {"blocks": out[0], "blocks_per_sm": out[1], "threads": out[2],
             "smem_bytes": out[3], "sms": sms, "waves": out[0] / (out[1] * sms)}
@@ -450,8 +475,8 @@ def tc_grid(name, case) -> dict:
 
 def check_dispatch() -> dict:
     """One bf16 and one fp32 call of each tensor-core kernel's wrapper under
-    torch.profiler: the device kernels that ran must be fa::<name>_tc_kernel
-    for bf16 and the fp32 FMA kernel fa::<name>_kernel<float, …> for fp32."""
+    torch.profiler: the one device kernel that ran must be the tensor-core
+    kernel for bf16 and the fp32 FMA kernel for fp32 (``TENSOR_CORE``)."""
     from torch.profiler import ProfilerActivity, profile
     case = SMALL_CASES[2]
     B, S, T, H, Kv, hd, causal, window = case
@@ -460,19 +485,22 @@ def check_dispatch() -> dict:
         q, k, v, do = make_inputs(0, B, S, T, H, Kv, hd, dtype)
         o, lse = fa.flash_fwd_cuda(q, k, v, causal, window)
         delta = ops.attention_delta(o, do)
+        bw = (q, k, v, do, lse, delta, causal, window)
+        ssd_args = ssd_inputs(0, 1, 2, 64, 2, 16, 1, 16, dtype)
         torch.cuda.synchronize()
         ran = {}
         for name, call in (("flash_fwd", lambda: fa.flash_fwd_cuda(q, k, v, causal, window)),
-                           ("flash_dkv", lambda: fa.flash_dkv_cuda(q, k, v, do, lse, delta,
-                                                                   causal, window))):
+                           ("flash_dq", lambda: fa.flash_dq_cuda(*bw)),
+                           ("flash_dkv", lambda: fa.flash_dkv_cuda(*bw)),
+                           ("ssd_chunk", lambda: sc.ssd_chunk_cuda(*ssd_args))):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 call()
                 torch.cuda.synchronize()
             ran[name] = sorted({e.key for e in prof.key_averages()
                                 if e.device_type == torch.autograd.DeviceType.CUDA
-                                and "fa::flash_" in e.key})
-            want = (f"fa::{name}_tc_kernel<" if dtype == torch.bfloat16
-                    else f"fa::{name}_kernel<float")
+                                and ("fa::flash_" in e.key or "ssd::" in e.key)})
+            tc, fma, _ = TENSOR_CORE[name]
+            want = tc if dtype == torch.bfloat16 else fma
             if len(ran[name]) != 1 or want not in ran[name][0]:
                 raise AssertionError(f"{name} {dtype}: ran {ran[name]}, expected {want}…")
         out[str(dtype).replace("torch.", "")] = ran
@@ -496,8 +524,8 @@ def phase_kernels_flash(cfg) -> dict:
                          **{n: {"kernel": errs[n], "library": errs["library"][n],
                                 "kernel_row_rel": errs["row_rel"][n],
                                 "library_row_rel": errs["library_row_rel"][n]}
-                            for n in TENSOR_CORE}})
-    worst = lambda key: {n: max(c[n][key] for c in per_case) for n in TENSOR_CORE}
+                            for n in FLASH}})
+    worst = lambda key: {n: max(c[n][key] for c in per_case) for n in FLASH}
     emit("kernels_bf16_small", cases=len(SMALL_CASES), tol=2e-2, rtol=2e-2,
          tol_row_rel=BF16_ROW_RTOL, tol_lse=BF16_LSE_ATOL,
          max_abs_err=worst("kernel"), library_max_abs_err=worst("library"),
@@ -519,7 +547,7 @@ def phase_kernels_flash(cfg) -> dict:
             timed[name]["max_abs_err"] = errs[name]
             timed[name]["max_row_rel_err"] = errs["row_rel"][name]
         timed["flash_fwd"]["lse_abs_err"] = errs["lse_abs"]
-        for name in TENSOR_CORE:
+        for name in FLASH:
             timed[name]["grid"] = tc_grid(name, case)
         out[tag] = timed
         emit("kernels_bf16", layer=tag, shape=dict(zip(
@@ -682,33 +710,90 @@ def ssd_inputs(seed, Bt, nc, Q, H, hp, G, N, dtype, dt_scale=0.1):
     return x, dt, b, c, a
 
 
-def check_ssd(args, tol, what) -> float:
+def check_ssd(args, tol, what, faults=False) -> dict:
+    """The kernel against its plain version on ``args``: y and states within
+    atol 10·tol and rtol tol, cum within tol (tests/test_kernels.py's); in
+    bf16 also y and states a row (over hp) within ``BF16_ROW_RTOL``, returned
+    under ``"row_rel"``: an absolute 0.2 on y cannot fail a wrong tile.
+    With ``faults``, what the row checks read on planted faults."""
     got = sc.ssd_chunk_cuda(*args)
     want = sc.ssd_chunk_plain(*args)
     torch.cuda.synchronize()
-    errs = []
-    for k, a, b, atol, rtol in zip(("y", "states", "cum"), got, want,
-                                   (10 * tol, 10 * tol, tol), (tol, tol, tol), strict=True):
-        errs.append(expect_close("ssd_chunk", a, b, atol, rtol, f"{what} ({k})"))
-    return max(errs)
+    errs = [expect_close("ssd_chunk", u, w, atol, tol, f"{what} ({k})")
+            for k, u, w, atol in zip(("y", "states", "cum"), got, want,
+                                     (10 * tol, 10 * tol, tol), strict=True)]
+    out = {"max_abs_err": max(errs)}
+    if args[0].dtype == torch.bfloat16:
+        out["row_rel"] = {k: row_rel_err(u, w) for k, u, w in zip(("y", "states"), got, want)}
+        if max(out["row_rel"].values()) > BF16_ROW_RTOL:
+            raise AssertionError(f"ssd_chunk disagrees with its plain version at {what}: row "
+                                 f"relative errors {out['row_rel']} (tolerance "
+                                 f"{BF16_ROW_RTOL})")
+    if faults:
+        out["planted_faults"] = ssd_planted_faults(args, want, what)
+    return out
+
+
+def ssd_planted_faults(args, want, what) -> dict:
+    """What the bf16 row checks read on two faults the SSD kernel could have,
+    built in fp32 from the plain formulas for batch 0, chunk 0, every head,
+    and rounded as the kernel rounds: y without the diagonal 64 x 64 tile of
+    the last row tile, and states without the last row tile's (64 rows)
+    share of the sum — the rows with the least decay, so the largest share.
+    Each must read above the tolerance."""
+    x, dt, b, c, a = args
+    Q, H = x.shape[2], x.shape[3]
+    rep = H // b.shape[3]
+    rows = slice((Q - 1) // 64 * 64, Q)
+    xf, dtf = x[0, 0, rows].float(), dt[0, 0]                       # (r,H,hp), (Q,H)
+    bh = b[0, 0].float().repeat_interleave(rep, dim=1)[rows]        # (r,H,N)
+    ch = c[0, 0].float().repeat_interleave(rep, dim=1)[rows]
+    cum = torch.cumsum(dtf, dim=0) * a                              # (Q,H)
+    seg = cum[rows, None] - cum[None, rows]                         # (r,r,H)
+    tri = torch.ones(seg.shape[:2], dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(tri[..., None], seg, float("-inf")))
+    att = torch.einsum("ihn,jhn->ijh", ch, bh) * decay
+    y_diag = torch.einsum("ijh,jhp->ihp", att, xf * dtf[rows, :, None])
+    y_want = want[0][0, 0, rows]
+    w = torch.exp(cum[-1] - cum[rows]) * dtf[rows]                  # (r,H)
+    st_tile = torch.einsum("jhn,jhp->hnp", bh * w[..., None], xf)
+    st_want = want[1][0, 0]
+    out = {"ssd_y_diagonal_tile_dropped": {
+               "y_row_rel": row_rel_err((y_want.float() - y_diag).to(x.dtype), y_want)},
+           "ssd_states_last_row_tile_dropped": {
+               "states_row_rel": row_rel_err(st_want - st_tile, st_want)}}
+    missed = {f"{fault}.{key}": v for fault, r in out.items() for key, v in r.items()
+              if v <= BF16_ROW_RTOL}
+    if missed:
+        raise AssertionError(f"the bf16 SSD checks at {what} cannot see planted faults: {missed}")
+    return out
 
 
 SSD_CASES = [
     # Q, hp, N: the reference's test shapes (BH=3 heads, one per group, nc=2) ...
     (64, 32, 16), (128, 64, 128), (32, 16, 32),
 ]
+#: ... and the model's layout: 8 heads on 2 groups, a ragged last row tile
+#: (Q = 96) with dt as large as the model's at init, and mamba2's Q, hp, N
+SSD_MODEL_CASES = [(96, 16, 32, 0.7), (256, 64, 128, 0.1)]
+
+
+def ssd_reference_layout(i, Q, hp, N, dtype):
+    """Inputs of the reference's layout: x (BH,nc,Q,hp), dt, b, c, a."""
+    rng = generator(i)
+    BH, nc = 3, 2
+    x = randn(rng, (BH, nc, Q, hp), dtype)
+    dt = randn(rng, (BH, nc, Q), torch.float32).abs() * 0.1
+    b = randn(rng, (BH, nc, Q, N), dtype)
+    c = randn(rng, (BH, nc, Q, N), dtype)
+    a = -randn(rng, (BH,), torch.float32).abs() - 0.1
+    return x, dt, b, c, a
 
 
 def check_ssd_fp32() -> float:
     worst = 0.0
     for i, (Q, hp, N) in enumerate(SSD_CASES):
-        rng = generator(i)
-        BH, nc = 3, 2
-        x = randn(rng, (BH, nc, Q, hp), torch.float32)
-        dt = randn(rng, (BH, nc, Q), torch.float32).abs() * 0.1
-        b = randn(rng, (BH, nc, Q, N), torch.float32)
-        c = randn(rng, (BH, nc, Q, N), torch.float32)
-        a = -randn(rng, (BH,), torch.float32).abs() - 0.1
+        x, dt, b, c, a = ssd_reference_layout(i, Q, hp, N, torch.float32)
         got = ops.ssd_chunk(x, dt, b, c, a)            # the reference's layout
         want = ref.ssd_chunk_ref(x, dt, b, c, a)
         torch.cuda.synchronize()
@@ -716,25 +801,47 @@ def check_ssd_fp32() -> float:
                                  strict=True):
             worst = max(worst, expect_close("ssd_chunk", u, w, atol, 2e-5,
                                             f"Q={Q} hp={hp} N={N} fp32 ({k})"))
-    # ... and the model's layout: 8 heads on 2 groups, a ragged last row tile
-    # (Q = 96) with dt as large as the model's at init, and mamba2's Q, hp, N
-    for Q, hp, N, dt_scale in ((96, 16, 32, 0.7), (256, 64, 128, 0.1)):
+    for Q, hp, N, dt_scale in SSD_MODEL_CASES:
         args = ssd_inputs(7, 2, 2, Q, 8, hp, 2, N, torch.float32, dt_scale)
-        worst = max(worst, check_ssd(args, 2e-5, f"model layout Q={Q} hp={hp} N={N} fp32"))
+        worst = max(worst, check_ssd(args, 2e-5, f"model layout Q={Q} hp={hp} N={N} "
+                                                 "fp32")["max_abs_err"])
+    return worst
+
+
+def check_ssd_bf16_small() -> dict:
+    """The small cases of ``check_ssd_fp32`` in bf16 (the tensor-core kernel),
+    the reference's layout through the views ``ops.ssd_chunk`` makes;
+    returns the largest abs and row errors."""
+    worst = {"max_abs_err": 0.0, "y": 0.0, "states": 0.0}
+    cases = []
+    for i, (Q, hp, N) in enumerate(SSD_CASES):
+        x, dt, b, c, a = ssd_reference_layout(i, Q, hp, N, torch.bfloat16)
+        cases.append(((*ref.to_heads(x, dt, b, c), a), f"Q={Q} hp={hp} N={N} bf16"))
+    for Q, hp, N, dt_scale in SSD_MODEL_CASES:
+        cases.append((ssd_inputs(7, 2, 2, Q, 8, hp, 2, N, torch.bfloat16, dt_scale),
+                      f"model layout Q={Q} hp={hp} N={N} bf16"))
+    for args, what in cases:
+        e = check_ssd(args, 2e-2, what)
+        worst["max_abs_err"] = max(worst["max_abs_err"], e["max_abs_err"])
+        for k in ("y", "states"):
+            worst[k] = max(worst[k], e["row_rel"][k])
     return worst
 
 
 def time_ssd(Bt, nc, Q, H, hp, G, N) -> dict:
     args = ssd_inputs(15, Bt, nc, Q, H, hp, G, N, torch.bfloat16)
-    err = check_ssd(args, 2e-2, f"B={Bt} nc={nc} Q={Q} H={H} hp={hp} N={N} bf16")
+    chk = check_ssd(args, 2e-2, f"B={Bt} nc={nc} Q={Q} H={H} hp={hp} N={N} bf16", faults=True)
     torch.cuda.empty_cache()
-    return {"max_abs_err": err,
+    return {"max_abs_err": chk["max_abs_err"],
+            "max_row_rel_err": max(chk["row_rel"].values()), "row_rel": chk["row_rel"],
+            "tol_row_rel": BF16_ROW_RTOL, "planted_faults": chk["planted_faults"],
             "ms": time_ms(lambda: sc.ssd_chunk_cuda(*args), 5),
             "plain_ms": time_ms(lambda: sc.ssd_chunk_plain(*args), 2),
             "backward_plain_ms": backward_ms(ops.ssd_chunk_heads, args, 2),
             "library_ms": None,
             "library_note": "no PyTorch call computes the SSD chunk",
             "tol": 0.2, "rtol": 2e-2,        # y: ten times the absolute tolerance
+            "grid": tc_grid("ssd_chunk", (Bt, nc, Q, H, hp, G, N)),
             **ssd_bound(Bt, nc, Q, H, hp, G, N, 2)}
 
 
@@ -762,6 +869,10 @@ def phase_kernels_more(gemma, mamba) -> dict:
                                    "fused_adam_mixed_dtypes": 2e-2,
                                    "ssd_chunk": "y, states: atol 2e-4 rtol 2e-5; cum 1e-5"},
          max_abs_err={**worst, "fused_adam_mixed_dtypes": mixed})
+    ssd_small = check_ssd_bf16_small()
+    emit("kernels_bf16_small_ssd", cases=len(SSD_CASES) + len(SSD_MODEL_CASES), tol=0.2,
+         rtol=2e-2, tol_row_rel=BF16_ROW_RTOL, max_abs_err=ssd_small["max_abs_err"],
+         max_row_rel_err={k: ssd_small[k] for k in ("y", "states")})
 
     rows = TRAIN_BATCH * SEQ
     norms = {d: time_rmsnorm(rows, d) for d in (gemma.d_model, mamba.d_model, mamba.d_inner)}
@@ -1054,7 +1165,8 @@ def main() -> None:
                               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                               "shape": t["shape"]})
-                for key in ("library_note", "backward_plain_ms", "other_shapes"):
+                for key in ("library_note", "backward_plain_ms", "other_shapes", "grid",
+                            "max_row_rel_err", "tol_row_rel"):
                     if key in t:
                         entry[key] = t[key]
             line.append(entry)

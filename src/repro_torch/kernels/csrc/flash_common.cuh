@@ -16,17 +16,14 @@
 // between them: row maxima and sums are shuffles, and the shared score tile
 // is written and read by the same warp (a __syncwarp, no block barrier).
 //
-// Everything in shared memory is fp32 whatever the input type (bf16 is
-// widened on the way in), every product is an fp32 FMA and every sum is fp32:
-// fp32 inputs are computed in IEEE fp32, bf16 inputs accumulate in fp32.
-// The forward and dk/dv kernels take this path for fp32 inputs only; their
-// bf16 inputs go to tensor-core kernels (flash_mma.cuh).  dq takes it for
-// both types.
+// Inputs, shared tiles, products and sums are all fp32: IEEE fp32 FMAs, for
+// the fp32 parity of the plain versions.  The three flash kernels (and the
+// SSD chunk's) take this path for fp32 inputs only; their bf16 inputs go to
+// tensor-core kernels (flash_mma.cuh).
 // Rows are padded by 4 floats so that float4 reads of 8 neighbouring rows fall
 // into 8 different 16-byte bank groups.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,38 +35,17 @@ constexpr int NT = 256;  // threads per block: 16 (ty) x 16 (tx)
 // it to 0 once a real key arrives; with -inf the same spot would be NaN.
 constexpr float NEG_INF = -0.7f * 3.402823466e+38f;
 
-// ---- 4-wide loads and stores, widening / narrowing bf16 --------------------
+// ---- 4-wide loads and stores -------------------------------------------------
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
 __device__ __forceinline__ void st1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <int E>
 __device__ __forceinline__ float elem(const float4& v) {
@@ -80,8 +56,8 @@ __device__ __forceinline__ float elem(const float4& v) {
 
 // Copy ROWS rows of D elements (row stride `stride` elements) into an fp32
 // shared tile with row stride D + 4.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t stride) {
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t stride) {
   constexpr int V = D / 4;
   for (int idx = threadIdx.x; idx < ROWS * V; idx += NT) {
     const int r = idx / V;
@@ -174,14 +150,14 @@ __device__ __forceinline__ void tile_accum(const float* P, const float* V, int t
 
 // Write a thread's rows: dst points at row 0 of the block's tile, column 0.
 // Row i of the thread is multiplied by mul[i] on the way out.
-template <typename T, int D, int NR>
-__device__ __forceinline__ void store_rows(T* dst, int64_t stride, int ty, int tx,
+template <int D, int NR>
+__device__ __forceinline__ void store_rows(float* dst, int64_t stride, int ty, int tx,
                                            const float (&o)[NR][D / 16],
                                            const float (&mul)[NR]) {
   constexpr int CPT = D / 16;
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
-    T* row = dst + (int64_t)(ty + 16 * i) * stride;
+    float* row = dst + (int64_t)(ty + 16 * i) * stride;
     if constexpr (CPT >= 4) {
 #pragma unroll
       for (int g = 0; g < CPT / 4; ++g) {

@@ -77,11 +77,11 @@ constexpr size_t dkv_smem_bytes() {
 
 // grid (B, Kv, T / BN); q, do: (B,S,H,D); k, v, dk, dv: (B,T,Kv,D);
 // lse, delta: (B,H,S).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int S,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int S,
                  int Tk, int H, int Kv, int causal, int window, float scale) {
   constexpr int BN = DKV_BN, BM = DKV_BM, LD = D + 4, LDP = DKV_LDP;
   constexpr int NR = BN / 16, NC = BM / 16, CPT = D / 16;
@@ -102,8 +102,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int64_t q_stride = (int64_t)H * D, k_stride = (int64_t)Kv * D;
   const int64_t k_base = (((int64_t)b * Tk + k0) * Kv + kvh) * D;
 
-  load_tile<T, D, BN>(sK, k + k_base, k_stride);
-  load_tile<T, D, BN>(sV, v + k_base, k_stride);
+  load_tile<D, BN>(sK, k + k_base, k_stride);
+  load_tile<D, BN>(sV, v + k_base, k_stride);
 
   float acc_k[NR][CPT], acc_v[NR][CPT];
 #pragma unroll
@@ -123,8 +123,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int q0 = qt * BM;
       const int64_t q_base = (((int64_t)b * S + q0) * H + h) * D;
       __syncthreads();  // everyone is done with the previous Q, dO tiles
-      load_tile<T, D, BM>(sQ, q + q_base, q_stride);
-      load_tile<T, D, BM>(sdO, dout + q_base, q_stride);
+      load_tile<D, BM>(sQ, q + q_base, q_stride);
+      load_tile<D, BM>(sdO, dout + q_base, q_stride);
       if (threadIdx.x < BM) {
         sLse[threadIdx.x] = lse[row_base + q0 + threadIdx.x];
         sDelta[threadIdx.x] = delta[row_base + q0 + threadIdx.x];
@@ -157,8 +157,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float one[NR];
 #pragma unroll
   for (int i = 0; i < NR; ++i) one[i] = 1.f;
-  store_rows<T, D, NR>(dk + k_base, k_stride, ty, tx, acc_k, one);
-  store_rows<T, D, NR>(dv + k_base, k_stride, ty, tx, acc_v, one);
+  store_rows<D, NR>(dk + k_base, k_stride, ty, tx, acc_k, one);
+  store_rows<D, NR>(dv + k_base, k_stride, ty, tx, acc_v, one);
 }
 
 template <int D>
@@ -166,15 +166,14 @@ int launch_dkv_fma(const void* q, const void* k, const void* v, const void* dout
                    const float* lse, const float* delta, void* dk, void* dv, int B, int S,
                    int Tk, int H, int Kv, int causal, int window, float scale,
                    cudaStream_t stream) {
-  using T = float;
   constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kernel = flash_dkv_kernel<T, D>;
+  auto kernel = flash_dkv_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, Kv, Tk / DKV_BN);
-  kernel<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
-                                     delta, (T*)dk, (T*)dv, S, Tk, H, Kv, causal, window,
+  kernel<<<grid, NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse,
+                                     delta, (float*)dk, (float*)dv, S, Tk, H, Kv, causal, window,
                                      scale);
   return (int)cudaGetLastError();
 }

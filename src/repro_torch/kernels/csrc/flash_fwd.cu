@@ -66,10 +66,10 @@ constexpr size_t fwd_smem_bytes() {
 }
 
 // grid (B, H, S / BM); q, o: (B,S,H,D); k, v: (B,T,Kv,D); lse: (B,H,S).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int S, int Tk, int H, int Kv,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ o, float* __restrict__ lse, int S, int Tk, int H, int Kv,
                  int causal, int window, float scale) {
   constexpr int BM = FWD_BM, BN = FWD_BN, LD = D + 4, LDP = FWD_LDP;
   constexpr int NR = BM / 16, NC = BN / 16, CPT = D / 16;
@@ -85,11 +85,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int kvh = h / (H / Kv);
   const int off = Tk - S;
   const int64_t q_stride = (int64_t)H * D, k_stride = (int64_t)Kv * D;
-  const T* qp = q + (((int64_t)b * S + q0) * H + h) * D;
-  const T* kp = k + ((int64_t)b * Tk * Kv + kvh) * D;
-  const T* vp = v + ((int64_t)b * Tk * Kv + kvh) * D;
+  const float* qp = q + (((int64_t)b * S + q0) * H + h) * D;
+  const float* kp = k + ((int64_t)b * Tk * Kv + kvh) * D;
+  const float* vp = v + ((int64_t)b * Tk * Kv + kvh) * D;
 
-  load_tile<T, D, BM>(sQ, qp, q_stride);
+  load_tile<D, BM>(sQ, qp, q_stride);
 
   float m[NR], l[NR], acc[NR][CPT];
 #pragma unroll
@@ -105,8 +105,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();  // everyone is done with the previous K, V tiles
-    load_tile<T, D, BN>(sK, kp + (int64_t)k0 * k_stride, k_stride);
-    load_tile<T, D, BN>(sV, vp + (int64_t)k0 * k_stride, k_stride);
+    load_tile<D, BN>(sK, kp + (int64_t)k0 * k_stride, k_stride);
+    load_tile<D, BN>(sV, vp + (int64_t)k0 * k_stride, k_stride);
     __syncthreads();
 
     float s[NR][NC];
@@ -149,21 +149,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     inv[i] = 1.f / l[i];
     if (tx == 0) lse[((int64_t)b * H + h) * S + q0 + ty + 16 * i] = m[i] + logf(l[i]);
   }
-  store_rows<T, D, NR>(o + (((int64_t)b * S + q0) * H + h) * D, q_stride, ty, tx, acc, inv);
+  store_rows<D, NR>(o + (((int64_t)b * S + q0) * H + h) * D, q_stride, ty, tx, acc, inv);
 }
 
 template <int D>
 int launch_fwd_fma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int S, int Tk, int H, int Kv, int causal, int window, float scale,
                    cudaStream_t stream) {
-  using T = float;
   constexpr size_t smem = fwd_smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, H, S / FWD_BM);
-  kernel<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, Tk,
+  kernel<<<grid, NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v, (float*)o, lse, S, Tk,
                                      H, Kv, causal, window, scale);
   return (int)cudaGetLastError();
 }

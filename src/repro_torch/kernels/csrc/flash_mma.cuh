@@ -1,5 +1,5 @@
-// Tensor-core building blocks of the bf16 flash-attention kernels
-// (flash_fwd_tc_kernel, flash_dkv_tc_kernel).
+// Tensor-core building blocks of the bf16 kernels (flash_fwd_tc_kernel,
+// flash_dq_tc_kernel, flash_dkv_tc_kernel, ssd_chunk_tc_kernel).
 //
 // Products are `mma.sync.aligned.m16n8k16` with bf16 operands and fp32
 // accumulators; operands reach registers from shared memory by `ldmatrix`,
@@ -88,6 +88,13 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
 // a row-major tile (rows = M, columns = K).
 __device__ __forceinline__ const bf16* a_addr(const bf16* tile, int ld, int k0, int lane) {
   return tile + (lane & 15) * ld + k0 + (lane >> 4) * 8;
+}
+// The same A fragment from a tile stored with one row per k (rows = K,
+// columns = M; the Bᵀ·x style of a product over the tile's rows), read by
+// ldsm_x4_t: matrices (m, k) = (0, 0), (8, 0), (0, 8), (8, 8) of the step.
+__device__ __forceinline__ const bf16* at_addr(const bf16* tile, int ld, int m0, int k0,
+                                               int lane) {
+  return tile + (k0 + (lane >> 4) * 8 + (lane & 7)) * ld + m0 + ((lane >> 3) & 1) * 8;
 }
 // B fragments of two 8-column tiles [n0, n0 + 16), k [k0, k0 + 16), from a
 // tile stored with one row per output column (rows = N, columns = K; k·qᵀ

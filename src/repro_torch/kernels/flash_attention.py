@@ -8,6 +8,10 @@ with ``H = Kv·G`` (q-head ``h`` reads kv-head ``h // G``); ``lse`` and
 ``s + (T − S)``.  The kernels read these strides directly; nothing is
 transposed or copied on the way in.
 
+Each C entry point chooses its kernel by the input type, not as a fallback:
+bf16 runs the tensor-core kernel (``flash_{fwd,dq,dkv}_tc_kernel``: p and ds
+rounded to bf16 before the second products), fp32 the IEEE fp32 FMA kernel.
+
 The plain versions are the tile-free statement of what the kernels compute:
 forward returns ``(o, lse)``; the backward ones are the explicit recompute
 formulas (``p = exp(s − lse)``, ``ds = p·(do·vᵀ − delta)·scale``), not

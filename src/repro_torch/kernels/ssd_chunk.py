@@ -46,7 +46,10 @@ def _strides(t, dims: int) -> list[int]:
 
 
 def ssd_chunk_cuda(x, dt, b, c, a):
-    """Launch the kernel; returns ``(y, states, cum)`` (see the module)."""
+    """Launch the kernel; returns ``(y, states, cum)`` (see the module).
+    bf16 inputs run ``ssd_chunk_tc_kernel`` (tensor cores; the scores times
+    decay and dt, and B times its states weight, rounded to bf16 before
+    their products), fp32 inputs the IEEE fp32 FMA kernel."""
     if x.dim() != 5 or dt.dim() != 4 or b.dim() != 5 or c.shape != b.shape:
         raise ValueError("ssd_chunk kernel: expected x (Bt,nc,Q,H,hp), dt (Bt,nc,Q,H), "
                          "b/c (Bt,nc,Q,G,N)")
@@ -66,15 +69,18 @@ def ssd_chunk_cuda(x, dt, b, c, a):
                         f"{x.dtype}, {b.dtype}, {c.dtype}")
     if dt.dtype != torch.float32 or a.dtype != torch.float32:
         raise TypeError("ssd_chunk kernel: dt and a must be float32")
+    # rows of x, b, c are read 16 bytes at a time (float4 loads in fp32,
+    # cp.async in bf16): bases on 16-byte boundaries, strides multiples of 16
+    # bytes (4 fp32 or 8 bf16 elements)
+    elems = 16 // x.element_size()
+    for t in (x, b, c):
+        if t.data_ptr() % 16 or any(s % elems for s in t.stride()[:4]):
+            raise ValueError(f"ssd_chunk kernel: rows of {tuple(t.shape)} (strides "
+                             f"{t.stride()}) are not aligned to {elems} elements "
+                             f"(16 bytes)")
     for t in (x, dt, b, c, a):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError("ssd_chunk kernel: all tensors must lie on one CUDA device")
-    # 4-element loads of x, b, c rows: rows and bases aligned to 4 elements
-    align = 4 * x.element_size()
-    for t in (x, b, c):
-        if t.data_ptr() % align or any(s % 4 for s in t.stride()[:4]):
-            raise ValueError(f"ssd_chunk kernel: rows of {tuple(t.shape)} (strides "
-                             f"{t.stride()}) are not aligned to 4 elements")
 
     y = torch.empty((Bt, nc, Q, H, hp), dtype=x.dtype, device=x.device)
     states = torch.empty((Bt, nc, H, N, hp), dtype=torch.float32, device=x.device)

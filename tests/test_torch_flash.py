@@ -8,8 +8,9 @@ from numpy with a seed and go to both.
 Tolerances are those of tests/test_kernels.py: fp32 2e-5 forward and 5e-5
 gradients (two fp32 summation orders over at most 256 keys), bf16 2e-2 (one
 rounding of the output to 8 bits of mantissa; on the card's bf16 kernels also
-the rounding of p and ds before the second products, which
-``test_tensor_core_rounding_fits_the_bf16_tolerance`` states in PyTorch).
+the rounding of p and ds before the second products — p·v, pᵀ·do, dsᵀ·q and
+ds·k — which ``test_tensor_core_rounding_fits_the_bf16_tolerance`` states in
+PyTorch).
 """
 
 import jax
@@ -142,11 +143,13 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
 
 def tc_arithmetic(q, k, v, do, causal, window):
     """The arithmetic of the bf16 tensor-core kernels (``flash_fwd_tc_kernel``,
-    ``flash_dkv_tc_kernel``) in plain PyTorch: fp32 products of the bf16
-    inputs, with ``p`` (forward and dk/dv) and ``ds`` (dk/dv) rounded to bf16
-    before they meet ``v``, ``do`` and ``q``; the row sum ``l`` and ``ds`` are
-    formed from the fp32 ``p``.  Returns o, lse, dk, dv (dk/dv summed over
-    the GQA group); the backward uses this o and lse, as training does."""
+    ``flash_dq_tc_kernel``, ``flash_dkv_tc_kernel``) in plain PyTorch: fp32
+    products of the bf16 inputs, with ``p`` (forward and dk/dv) and ``ds`` (dq
+    and dk/dv) rounded to bf16 before they meet ``v``, ``do``, ``k`` and
+    ``q``; the row sum ``l`` and ``ds`` are formed from the fp32 ``p``, and
+    ``ds`` from the fp32 ``dp``.  Returns o, lse, dq, dk, dv (dk/dv summed
+    over the GQA group); the backward uses this o and lse, as training
+    does."""
     B, S, H, hd = q.shape
     T, Kv = k.shape[1], k.shape[2]
     G, scale = H // Kv, hd ** -0.5
@@ -165,9 +168,10 @@ def tc_arithmetic(q, k, v, do, causal, window):
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum("bskgd,btkd->bkgst", dog, v.float())
     ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", bf(ds), k.float()).reshape(B, S, H, hd)
     dv = torch.einsum("bkgst,bskgd->btkd", bf(p), dog)
     dk = torch.einsum("bkgst,bskgd->btkd", bf(ds), qg)
-    return o, lse.reshape(B, H, S), dk.to(k.dtype), dv.to(v.dtype)
+    return o, lse.reshape(B, H, S), dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 @pytest.mark.parametrize("window", [None, 16])
@@ -176,22 +180,23 @@ def test_tensor_core_rounding_fits_the_bf16_tolerance(window):
     before the second products, which the card's bf16 kernels do and the fp32
     path does not) stays within the tolerances the card holds those kernels
     to (2e-2 elementwise, ``ROW_RTOL`` a row) of the Pallas kernels run in
-    interpret mode on the same bf16 inputs.  It checks that statement of the
+    interpret mode on the same bf16 inputs: o and lse, and dq, dk, dv against
+    ``jax.vjp`` of the reference.  It checks that statement of the
     rounding, not the port's code: the kernels themselves are held to the
     same tolerances by chip_smoke.py on the card."""
     B, S, T, H, Kv, hd = 1, 128, 256, 4, 2, 32
     tol = TOL["bfloat16"]
     (jq, jk, jv, jdo), (q, k, v, do) = inputs(8, B, S, T, H, Kv, hd, "bfloat16")
-    o, lse, dk, dv = tc_arithmetic(q, k, v, do, True, window)
+    o, lse, dq, dk, dv = tc_arithmetic(q, k, v, do, True, window)
     o_ref, vjp = jax.vjp(
         lambda a, b, c: ref_ops.flash_attention(a, b, c, True, window, 64, 64), jq, jk, jv)
     _, lse_ref = ref_ops._flash_fwd_impl(jq, jk, jv, True, window, 64, 64, None)
-    _, dk_ref, dv_ref = vjp(jdo)
+    dq_ref, dk_ref, dv_ref = vjp(jdo)
     np.testing.assert_allclose(f32(o), f32(o_ref), atol=tol, rtol=tol)
     np.testing.assert_allclose(f32(lse).reshape(B * H, S), f32(lse_ref), atol=2e-5, rtol=2e-5)
-    for a, b in ((dk, dk_ref), (dv, dv_ref)):
+    for a, b in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         np.testing.assert_allclose(f32(a), f32(b), atol=tol, rtol=tol)
-    for a, b in ((o, o_ref), (dk, dk_ref), (dv, dv_ref)):
+    for a, b in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         a, b = f32(a).reshape(-1, hd), f32(b).reshape(-1, hd)
         err = np.linalg.norm(a - b, axis=-1)
         assert np.all(err <= ROW_RTOL * np.linalg.norm(b, axis=-1)), err.max()
@@ -204,9 +209,10 @@ CONTRACT_CASES = ["cpu_tensor", "head_dim", "seq", "dtype", "t_lt_s", "strided",
 @pytest.mark.parametrize("bad", CONTRACT_CASES + [f"bf16:{c}" for c in CONTRACT_CASES])
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(bad):
     """The CUDA wrappers never compute anything for inputs outside the
-    kernels' contract, and never fall back to the plain version: the forward
-    and the dk/dv wrapper both raise before any launch, for fp32 inputs (the
-    FMA kernels) and bf16 inputs (the tensor-core kernels) alike."""
+    kernels' contract, and never fall back to the plain version: the
+    forward, dq and dk/dv wrappers all raise before any launch, for fp32
+    inputs (the FMA kernels) and bf16 inputs (the tensor-core kernels)
+    alike."""
     dtype = "bfloat16" if bad.startswith("bf16:") else "float32"
     bad = bad.removeprefix("bf16:")
     B, S, T, H, Kv, hd = 1, 64, 64, 2, 1, 16
@@ -238,6 +244,8 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(bad):
     before = dict(ops.LAUNCHES)
     with pytest.raises(exc, match=match):
         fa.flash_fwd_cuda(q, k, v, True, window)
+    with pytest.raises(exc, match=match):
+        fa.flash_dq_cuda(q, k, v, do, lse, delta, True, window)
     with pytest.raises(exc, match=match):
         fa.flash_dkv_cuda(q, k, v, do, lse, delta, True, window)
     assert ops.LAUNCHES == before
