@@ -8,17 +8,23 @@
 Phases, each printing one JSON line (or a few):
   env         versions, device name, power limit
   build       compiles the CUDA kernels from src/repro_torch/kernels/csrc
-  kernels     each of the six kernels against its plain PyTorch version on
-              the card: fp32 at small shapes, bf16 at the training shapes;
-              the flash and SSD kernels' small shapes also in bf16 (their
-              tensor-core kernels), flash beside the library's own bf16 error,
-              planted faults that the bf16 checks must see, and a profiler
-              check of which device kernel each dtype runs; times each
-              kernel, its plain version and the library call, and computes
-              its bound
+  kernels     each of the six kernels and the rmsnorm backward against its
+              plain PyTorch version on the card: fp32 at small shapes, bf16
+              at the training shapes; the flash and SSD kernels' small shapes
+              also in bf16 (their tensor-core kernels), flash beside the
+              library's own bf16 error, planted faults that the bf16 checks
+              must see, and a profiler check of which device kernel each
+              dtype runs (rmsnorm: its launches, and no operator of the plain
+              backward beneath its autograd node);
+              fused_adam as one multi-tensor call over whole trees (bit for
+              bit in fp32, launches by dtype group); times each kernel (the
+              norms over inputs rotated past the L2), its plain version and
+              the library call, and computes its bound
   train       Trainer.fit on full-width, full-depth gemma3-1b at S=4096
-              through the flash, rmsnorm and fused_adam kernels; checks
-              losses, launch counts and the checkpoint
+              through the flash, rmsnorm (forward and backward) and
+              fused_adam kernels; checks losses, launch counts and the
+              checkpoint (with --profile: that the norm's backward ran its
+              kernels and no operator of the plain backward)
   train_ssm   the same for full-width, full-depth mamba2-1.3b through the
               ssd_chunk, rmsnorm and fused_adam kernels
   parity      kernel path == plain path (loss and grads), small fp32 gemma3
@@ -40,6 +46,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from dataclasses import replace
 
 import numpy as np
@@ -91,6 +98,10 @@ KERNELS = {
     "rmsnorm": {"route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "replaces": "src/repro/kernels/rmsnorm.py:28"},
+    "rmsnorm_bwd": {"route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "replaces": "autograd of the plain version; the TPU kernel "
+                                "src/repro/kernels/rmsnorm.py:28 has no backward"},
     "fused_adam": {"route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
                    "replaces": "src/repro/kernels/fused_adam.py:44"},
@@ -140,22 +151,53 @@ def phase_env() -> None:
          device_count=torch.cuda.device_count(), nvidia_smi=smi())
 
 
-def phase_build() -> None:
+def norm_widths(gemma, mamba) -> tuple[int, ...]:
+    """The widths the training paths normalise through ``ops.rmsnorm``."""
+    return gemma.d_model, mamba.d_model, mamba.d_inner
+
+
+def memory_bound_kernels(widths) -> dict[str, dict[str, int]]:
+    """ptxas names (mangled-name prefixes) of the memory-bound kernels the
+    training paths launch, by source, each with its count of
+    instantiations: the bf16 rmsnorm forward and backward at ``widths``
+    (``rn::rmsnorm_kernel<T, TPR, MAXV>``, ``rn::rmsnorm_bwd_kernel<...>``,
+    named by their launch geometry), the backward's fixed-order sum, and
+    every ``adam::adam_kernel<P, G, S>`` (the paths' two among the eight)."""
+    rows = TRAIN_BATCH * SEQ
+    norm = {"_ZN2rn25rmsnorm_bwd_reduce_kernel": 1}
+    for d in widths:
+        for bwd, name in ((False, "14rmsnorm_kernel"), (True, "18rmsnorm_bwd_kernel")):
+            g = rn.grid(d, rows, True, bwd, 0)
+            norm[f"_ZN2rn{name}I13__nv_bfloat16Li{g['threads_per_row']}"
+                 f"ELi{g['max_vectors_per_thread']}E"] = 1
+    return {"rmsnorm": norm, "fused_adam": {"_ZN4adam11adam_kernelI": 8}}
+
+
+def expect_no_spills(what, kernels, count) -> None:
+    """ptxas' report (kept beside a cached library) of ``count`` kernels
+    must be there and show no spill bytes."""
+    if len(kernels) != count or not all("spill_stores" in k for k in kernels):
+        raise AssertionError(f"{what}: no complete ptxas report ({count} kernels): {kernels}")
+    spilled = [k for k in kernels if k["spill_stores"] + k["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"{what} spill registers: {spilled}")
+
+
+def phase_build(widths) -> None:
     build.load_library(build.SOURCES[0])      # builds and loads all of them
     info = build.BUILD_INFO
     emit("build", seconds=round(info["seconds"], 2), built=info["built"],
          libraries={n: os.path.relpath(p, ROOT) for n, p in info["paths"].items()},
          ptxas=info["ptxas"])
-    # ptxas' report of every tensor-core kernel (kept beside a cached library)
-    # must be there, one per instantiation, and show no spill bytes
+    # every tensor-core kernel, one per instantiation, spills nothing; nor
+    # do the memory-bound kernels of the training paths
     for name, (_, _, count) in TENSOR_CORE.items():
-        tc = [k for k in info["ptxas"][name] if "_tc_kernel" in k["kernel"]]
-        if len(tc) != count or not all("spill_stores" in k for k in tc):
-            raise AssertionError(f"{name}: no complete ptxas report of its tensor-core "
-                                 f"kernels: {tc}")
-        spilled = [k for k in tc if k["spill_stores"] + k["spill_loads"]]
-        if spilled:
-            raise AssertionError(f"tensor-core kernels spill registers: {spilled}")
+        expect_no_spills(f"{name}'s tensor-core kernels",
+                         [k for k in info["ptxas"][name] if "_tc_kernel" in k["kernel"]], count)
+    for name, prefixes in memory_bound_kernels(widths).items():
+        for prefix, count in prefixes.items():
+            expect_no_spills(prefix, [k for k in info["ptxas"][name]
+                                      if k["kernel"].startswith(prefix)], count)
 
 
 # ---------------------------------------------------------------------------
@@ -575,8 +617,8 @@ def randn(rng, shape, dtype, scale=1.0):
 
 
 def backward_ms(fn, args, reps) -> float:
-    """ms of the backward of ``fn`` (an autograd Function of ops: autograd
-    of the kernel's plain version) with respect to all its inputs."""
+    """ms of the autograd backward of ``fn`` with respect to all its inputs
+    (for the SSD chunk: autograd of the kernel's plain version)."""
     leaves = [a.detach().requires_grad_(True) for a in args]
     outs = fn(*leaves)
     outs = outs if isinstance(outs, tuple) else (outs,)
@@ -589,16 +631,37 @@ def backward_ms(fn, args, reps) -> float:
 # -- rmsnorm --------------------------------------------------------------------
 
 
+#: bf16 at the training shapes: dscale (fp32 sums over 16384 rows on both
+#: sides, in other orders) within this share of its largest entry
+DSCALE_RTOL = 1e-4
+L2_BYTES = 50 * 2 ** 20  # H100's L2
+
+
 def rmsnorm_bound(rows, d, itemsize) -> dict:
     """x read and y written once, scale read once; sum of squares, mean,
     rsqrt and two products: about 4 fp32 operations an element."""
     return bound(4 * rows * d, 2 * rows * d * itemsize + 4 * d, PEAK_FP32)
 
 
+def rmsnorm_bwd_bound(rows, d, itemsize) -> dict:
+    """x and dy read and dx written once, scale read and dscale written
+    once; two sums (3 operations), dx (4) and dscale's term and sum (3): about
+    10 fp32 operations an element."""
+    return bound(10 * rows * d, 3 * rows * d * itemsize + 8 * d, PEAK_FP32)
+
+
+def rel_to_max(got, want) -> float:
+    """max |got − want| over max |want|."""
+    return max_err(got, want) / float(want.float().abs().max())
+
+
+def norm_inputs(rng, shape, dtype):
+    return (randn(rng, shape, dtype), randn(rng, shape[-1:], torch.float32, 0.1),
+            randn(rng, shape, dtype))
+
+
 def check_rmsnorm(shape, dtype, tol, seed) -> float:
-    rng = generator(seed)
-    x = randn(rng, shape, dtype)
-    scale = randn(rng, shape[-1:], torch.float32, 0.1)
+    x, scale, _ = norm_inputs(generator(seed), shape, dtype)
     y = rn.rmsnorm_cuda(x, scale)
     torch.cuda.synchronize()
     if y.dtype != x.dtype or y.shape != x.shape:
@@ -606,20 +669,122 @@ def check_rmsnorm(shape, dtype, tol, seed) -> float:
     return expect_close("rmsnorm", y, rn.rmsnorm_plain(x, scale), tol, tol, f"{shape} {dtype}")
 
 
+def check_rmsnorm_bwd_fp32(shape, seed) -> dict:
+    """The backward kernel against autograd of the plain forward, fp32: dx
+    within 5e-5 (abs and rel), dscale within 5e-5 of its largest entry."""
+    x, scale, dy = norm_inputs(generator(seed), shape, torch.float32)
+    dx, ds = rn.rmsnorm_bwd_cuda(x, scale, dy)
+    xa, sa = x.clone().requires_grad_(True), scale.clone().requires_grad_(True)
+    want_dx, want_ds = torch.autograd.grad(rn.rmsnorm_plain(xa, sa), (xa, sa), dy)
+    torch.cuda.synchronize()
+    err = {"dx": expect_close("rmsnorm_bwd", dx, want_dx, 5e-5, 5e-5, f"{shape} fp32 (dx)"),
+           "dscale_rel": rel_to_max(ds, want_ds)}
+    if not (torch.isfinite(ds).all() and err["dscale_rel"] <= 5e-5):
+        raise AssertionError(f"rmsnorm_bwd disagrees with autograd of the plain version at "
+                             f"{shape} fp32: dscale {err['dscale_rel']:.3e} of its largest entry "
+                             "(tolerance 5e-5)")
+    return err
+
+
+def rotating_sets(make, nbytes: int) -> list:
+    """Enough input sets from ``make(i)`` that the bytes read between two
+    uses of one set (``nbytes`` a set) exceed twice the L2: every timed call
+    finds its inputs in device memory, as the training step does."""
+    return [make(i) for i in range(max(2, math.ceil(2 * L2_BYTES / nbytes) + 1))]
+
+
+def time_rotating(fn, sets, reps: int) -> float:
+    """Mean milliseconds of ``fn(*set)`` by CUDA events over ``reps`` calls
+    that take the sets in turn, after one warm-up call on each."""
+    for args in sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(*sets[i % len(sets)])
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def rmsnorm_bwd_faults(x, scale, dy, dx_p, ds_p) -> dict:
+    """What the bf16 checks read on two faults the backward kernel could
+    have, built from the plain formulas: dx without its ``mean(w·g·x)``
+    term, rounded as the kernel rounds; dscale without the partial of the
+    grid's last block (its rows from ``rn.grid``).  Each must read above its
+    tolerance."""
+    d = x.shape[-1]
+    rows = x.numel() // d
+    xf, g = x.float().reshape(rows, d), dy.float().reshape(rows, d)
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + 1e-6)
+    dx_bad = (g * (1.0 + scale) * r).to(x.dtype)
+    geo = rn.grid(d, rows, x.dtype == torch.bfloat16, True, x.device.index)
+    blocks, at_once = geo["blocks"], geo["rows_at_once"]
+    last = torch.arange((blocks - 1) * at_once, rows, blocks * at_once, device=x.device)
+    mine = (last[:, None] + torch.arange(at_once, device=x.device)).flatten()
+    mine = mine[mine < rows]
+    ds_bad = ds_p - (g[mine] * (xf[mine] * r[mine])).sum(dim=0)
+    out = {"dx_mean_term_dropped": {"dx_row_rel": row_rel_err(dx_bad, dx_p.reshape(rows, d))},
+           "dscale_last_block_dropped": {"dscale_rel": rel_to_max(ds_bad, ds_p),
+                                         "rows_dropped": int(mine.numel())}}
+    if (out["dx_mean_term_dropped"]["dx_row_rel"] <= BF16_ROW_RTOL
+            or out["dscale_last_block_dropped"]["dscale_rel"] <= DSCALE_RTOL):
+        raise AssertionError(f"the rmsnorm_bwd checks at rows={rows} d={d} cannot see planted "
+                             f"faults: {out}")
+    return out
+
+
 def time_rmsnorm(rows, d) -> dict:
-    rng = generator(11)
-    x = randn(rng, (rows, d), torch.bfloat16)
-    scale = randn(rng, (d,), torch.float32, 0.1)
-    err = check_rmsnorm((rows, d), torch.bfloat16, 2e-2, seed=12)
-    # library yardstick: one PyTorch call, weight (1 + scale) in x's dtype (the
-    # port never calls it)
-    w = (1.0 + scale).to(x.dtype)
-    return {"max_abs_err": err,
-            "ms": time_ms(lambda: rn.rmsnorm_cuda(x, scale), 20),
-            "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, scale), 5),
-            "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6), 20),
-            "backward_plain_ms": backward_ms(ops.rmsnorm, (x, scale), 5),
-            **rmsnorm_bound(rows, d, x.element_size())}
+    """Forward and backward at (rows, d) in bf16: checked (forward 2e-2 and a
+    row within ``BF16_ROW_RTOL``; backward dx a row within ``BF16_ROW_RTOL``,
+    dscale within ``DSCALE_RTOL`` of its largest entry; two planted faults)
+    and timed over rotated inputs (a cold L2), beside the plain versions,
+    autograd of the plain forward (the backward before the kernel) and the
+    library: ``F.rms_norm`` with weight (1 + scale) in x's dtype and its
+    autograd backward, which the port never calls."""
+    dt = torch.bfloat16
+    x, scale, dy = norm_inputs(generator(11), (rows, d), dt)
+    y, y_p = rn.rmsnorm_cuda(x, scale), rn.rmsnorm_plain(x, scale)
+    dx, ds = rn.rmsnorm_bwd_cuda(x, scale, dy)
+    dx_p, ds_p = rn.rmsnorm_bwd_plain(x, scale, dy)
+    torch.cuda.synchronize()
+    fwd = {"max_abs_err": expect_close("rmsnorm", y, y_p, 2e-2, 2e-2, f"rows={rows} d={d} bf16"),
+           "max_row_rel_err": row_rel_err(y, y_p)}
+    bwd = {"max_abs_err": expect_close("rmsnorm_bwd", dx, dx_p, 2e-2, 2e-2,
+                                       f"rows={rows} d={d} bf16 (dx)"),
+           "max_row_rel_err": row_rel_err(dx, dx_p), "dscale_rel_err": rel_to_max(ds, ds_p)}
+    if (fwd["max_row_rel_err"] > BF16_ROW_RTOL or bwd["max_row_rel_err"] > BF16_ROW_RTOL
+            or not (torch.isfinite(ds).all() and bwd["dscale_rel_err"] <= DSCALE_RTOL)):
+        raise AssertionError(f"rmsnorm kernels disagree with their plain versions at rows={rows} "
+                             f"d={d} bf16: forward {fwd}, backward {bwd} (tolerances: a row "
+                             f"{BF16_ROW_RTOL}, dscale {DSCALE_RTOL} of its largest entry)")
+    bwd["planted_faults"] = rmsnorm_bwd_faults(x, scale, dy, dx_p, ds_p)
+    del y, y_p, dx, dx_p
+
+    size = rows * d * x.element_size()
+    sets = rotating_sets(lambda i: norm_inputs(generator(20 + i), (rows, d), dt), size)
+    w = (1.0 + scale).to(dt)
+    fwd.update(ms=time_rotating(lambda a, s, _: rn.rmsnorm_cuda(a, s), sets, 20),
+               plain_ms=time_ms(lambda: rn.rmsnorm_plain(x, scale), 5),
+               library_ms=time_rotating(lambda a, _, __: F.rms_norm(a, (d,), w, 1e-6), sets, 20),
+               grid=rn.grid(d, rows, True, False, x.device.index),
+               **rmsnorm_bound(rows, d, x.element_size()))
+    bwd.update(ms=time_rotating(rn.rmsnorm_bwd_cuda, sets, 20),
+               plain_ms=time_ms(lambda: rn.rmsnorm_bwd_plain(x, scale, dy), 5),
+               autograd_of_plain_ms=backward_ms(rn.rmsnorm_plain, (x, scale), 5),
+               grid=rn.grid(d, rows, True, True, x.device.index),
+               **rmsnorm_bwd_bound(rows, d, x.element_size()))
+    # library backward: autograd of F.rms_norm, one graph a set
+    graphs = []
+    for a, _, g in sets:
+        a, wl = a.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        graphs.append((F.rms_norm(a, (d,), wl, 1e-6), a, wl, g))
+    bwd["library_ms"] = fwd["library_bwd_ms"] = time_rotating(
+        lambda out, a, wl, g: torch.autograd.grad(out, (a, wl), g, retain_graph=True), graphs, 20)
+    del graphs, sets
+    return {"forward": fwd, "backward": bwd}
 
 
 # -- fused_adam -----------------------------------------------------------------
@@ -646,29 +811,56 @@ ADAM_HP = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
 
 def check_adam(leaf, count, tol) -> float:
     """Kernel and plain version on copies of ``leaf`` (p, g, m, v)."""
-    mine = [t.clone() for t in leaf]
-    plain = [t.clone() for t in leaf]
+    return check_adam_tree([leaf], count, tol)[0]
+
+
+def check_adam_tree(leaves, count, tol, fault=None) -> tuple[float, int]:
+    """One multi-tensor call of the kernel on copies of ``leaves`` against
+    ``fused_adam_plain`` on each leaf's copy; every p, m and v within ``tol``
+    (abs and rel; 0: bit for bit).  ``fault`` = (kind, i) plants a fault:
+    ``"left_out"`` leaves leaf i out of the kernel's call, ``"p_unstored"``
+    puts leaf i's p back as it was after the call, as a kernel that never
+    stored it would; the check then returns what it reads instead of
+    raising.  Returns (max abs error, launches of the call)."""
+    kind, at = fault or (None, None)
     cnt = torch.tensor(count, dtype=torch.int32, device=DEV)
-    fad.fused_adam_cuda(*mine, cnt, **ADAM_HP)
-    fad.fused_adam_plain(*plain, cnt, **ADAM_HP)
-    torch.cuda.synchronize()
-    p, g, m, _ = leaf
-    what = f"n={p.numel()} p {p.dtype} g {g.dtype} m/v {m.dtype} count {count}"
-    errs = [expect_close("fused_adam", a, b, tol, tol, f"{what} ({k})")
-            for k, a, b in zip("pgmv", mine, plain, strict=True) if k != "g"]
-    del mine, plain
-    return max(errs)
+    mine = [[t.clone() for t in leaf] for leaf in leaves]
+    before = ops.LAUNCHES["fused_adam"]
+    fad.fused_adam_multi_cuda(
+        *zip(*[m for i, m in enumerate(mine) if not (kind == "left_out" and i == at)],
+             strict=True), cnt, **ADAM_HP)
+    launched = ops.LAUNCHES["fused_adam"] - before
+    if kind == "p_unstored":
+        mine[at][0].copy_(leaves[at][0])
+    worst = 0.0
+    for i, (leaf, got) in enumerate(zip(leaves, mine, strict=True)):
+        plain = [t.clone() for t in leaf]
+        fad.fused_adam_plain(*plain, cnt, **ADAM_HP)
+        p, g, m, _ = leaf
+        what = f"leaf {i} n={p.numel()} p {p.dtype} g {g.dtype} m/v {m.dtype} count {count}"
+        for k, a, b in zip("pgmv", got, plain, strict=True):
+            if k == "g":
+                continue
+            if fault is None:
+                worst = max(worst, expect_close("fused_adam", a, b, tol, tol, f"{what} ({k})"))
+            else:
+                worst = max(worst, max_err(a, b))
+        del plain
+    del mine
+    return worst, launched
 
 
 def time_adam(shape, p_dt, g_dt, s_dt) -> dict:
+    """One leaf (a list of one for the multi-tensor kernel), checked bit for
+    bit against the plain version."""
     n = math.prod(shape)
     p, g, m, v = leaf = adam_leaf(generator(13), n, p_dt, g_dt, s_dt)
     cnt = torch.tensor(100, dtype=torch.int32, device=DEV)
-    err = check_adam(leaf, 100, 2e-2)
+    err = check_adam(leaf, 100, 0.0)
     torch.cuda.empty_cache()
-    ms = time_ms(lambda: fad.fused_adam_cuda(p, g, m, v, cnt, **ADAM_HP), 10)
+    ms = time_ms(lambda: fad.fused_adam_multi_cuda([p], [g], [m], [v], cnt, **ADAM_HP), 10)
     plain_ms = time_ms(lambda: fad.fused_adam_plain(p, g, m, v, cnt, **ADAM_HP), 3)
-    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    out = {"max_abs_err": err, "tol": 0.0, "ms": ms, "plain_ms": plain_ms,
            **adam_bound(n, p_dt, g_dt, s_dt)}
     if p_dt == g_dt == s_dt:
         # library yardstick: torch._fused_adamw_ (the port never calls it);
@@ -681,6 +873,106 @@ def time_adam(shape, p_dt, g_dt, s_dt) -> dict:
         out["library_ms"] = None
         out["library_note"] = ("torch._fused_adamw_ takes one dtype for params, grads and "
                                "states; these are mixed")
+    return out
+
+
+def adam_launches(dtypes) -> int:
+    """Launches one multi-tensor call takes for leaves of these (p, g, m/v)
+    dtypes: one per combination and ``fad.MAX_LEAVES`` leaves."""
+    return sum(math.ceil(n / fad.MAX_LEAVES) for n in Counter(dtypes).values())
+
+
+def leaf_dtypes(leaves):
+    return [(p.dtype, g.dtype, m.dtype) for p, g, m, _ in leaves]
+
+
+#: a tree for the multi-tensor launch: sizes on both sides of the kernel's
+#: 8-element vector and 65536-element chunk, and more leaves than one launch
+#: holds
+ADAM_TREE_SIZES = [1, 7, 8, 13, 100, 1000, 65535, 65536, 65537, 131081, 200003, 1_000_003]
+ADAM_DTYPES = [(torch.bfloat16, torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.float32, torch.float32),
+               (torch.float32, torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.bfloat16, torch.bfloat16)]
+
+
+def check_adam_trees() -> dict:
+    """The multi-tensor kernel on two trees, bit for bit: all fp32, with
+    more leaves than one launch takes; and every dtype combination in one
+    call.  Launches equal ``adam_launches``."""
+    rng = np.random.default_rng(3)
+    sizes = ADAM_TREE_SIZES + [int(n) for n in rng.integers(1, 5000, 2 * fad.MAX_LEAVES)]
+    f32 = torch.float32
+    out = {}
+    for tag, dts in (("fp32", [(f32, f32, f32)]),
+                     ("mixed_dtypes", [(f32, f32, f32), *ADAM_DTYPES])):
+        n_leaves = len(sizes) if tag == "fp32" else 40
+        leaves = [adam_leaf(generator(100 + i), sizes[i], *dts[i % len(dts)])
+                  for i in range(n_leaves)]
+        err, launched = check_adam_tree(leaves, 100, 0.0)
+        if launched != adam_launches(leaf_dtypes(leaves)):
+            raise AssertionError(f"fused_adam on the {tag} tree: {launched} launches, expected "
+                                 f"{adam_launches(leaf_dtypes(leaves))}")
+        out[tag] = {"leaves": n_leaves, "launches": launched, "max_abs_err": err, "tol": 0.0}
+    return out
+
+
+def adam_tree_bound(leaves) -> dict:
+    out = {"flops": 0, "bytes": 0}
+    for p, g, m, _ in leaves:
+        b = adam_bound(p.numel(), p.dtype, g.dtype, m.dtype)
+        out["flops"] += b["flops"]
+        out["bytes"] += b["bytes"]
+    return bound(out["flops"], out["bytes"], PEAK_FP32)
+
+
+def time_adam_tree(cfg) -> dict:
+    """One multi-tensor call over the whole parameter tree of ``cfg`` (its
+    params' dtypes, fp32 m and v, random gradients): checked against
+    ``fused_adam_plain`` leaf by leaf, bit for bit (two planted faults on
+    the largest leaf, left out of the call and its p left unstored, must read
+    above that), timed, and beside it the same tree all in fp32 through the
+    kernel and through ``torch._fused_adamw_``, the library yardstick (one
+    dtype for everything; the port never calls it)."""
+    params = [p.detach() for p in tree_flatten_with_path(init_params(cfg, 0, DEV)).values()]
+    rng = generator(14)
+    leaves = [(p, randn(rng, p.shape, p.dtype), randn(rng, p.shape, torch.float32, 0.1),
+               randn(rng, p.shape, torch.float32).abs() * 0.01) for p in params]
+    del params
+    err, launched = check_adam_tree(leaves, 100, 0.0)
+    torch.cuda.empty_cache()
+    biggest = max(range(len(leaves)), key=lambda i: leaves[i][0].numel())
+    faults = {}
+    for kind in ("left_out", "p_unstored"):
+        faults[f"largest_leaf_{kind}"] = {
+            "max_abs_err": check_adam_tree(leaves, 100, 0.0, fault=(kind, biggest))[0]}
+        torch.cuda.empty_cache()
+    if (launched != adam_launches(leaf_dtypes(leaves))
+            or min(f["max_abs_err"] for f in faults.values()) <= 0.0):
+        raise AssertionError(f"fused_adam on the {cfg.name} tree: {launched} launches "
+                             f"(expected {adam_launches(leaf_dtypes(leaves))}), planted faults "
+                             f"read {faults}")
+    cnt = torch.tensor(100, dtype=torch.int32, device=DEV)
+    ps, gs, ms, vs = (list(t) for t in zip(*leaves, strict=True))
+    out = {"leaves": len(leaves), "elements": sum(p.numel() for p in ps), "launches": launched,
+           "max_abs_err": err, "tol": 0.0, "planted_faults": faults,
+           "ms": time_ms(lambda: fad.fused_adam_multi_cuda(ps, gs, ms, vs, cnt, **ADAM_HP), 5),
+           **adam_tree_bound(leaves)}
+    del leaves
+    for lst in (ps, gs):            # the same tree in fp32, in place of the bf16 buffers
+        for i, t in enumerate(lst):
+            lst[i] = t.float()
+    torch.cuda.empty_cache()
+    step = [torch.tensor(100.0, device=DEV) for _ in ps]
+    out["all_fp32"] = {
+        "ms": time_ms(lambda: fad.fused_adam_multi_cuda(ps, gs, ms, vs, cnt, **ADAM_HP), 5),
+        "library_ms": time_ms(lambda: torch._fused_adamw_(
+            ps, gs, ms, vs, [], step, lr=1e-3, beta1=0.9, beta2=0.95, weight_decay=0.01,
+            eps=1e-8, amsgrad=False, maximize=False), 5),
+        **adam_tree_bound(list(zip(ps, gs, ms, vs, strict=True)))}
+    out["library_ms"] = out["all_fp32"]["library_ms"]
+    out["library_note"] = ("torch._fused_adamw_ on the same tree all in fp32 (it takes one "
+                           "dtype for params, grads and states)")
     return out
 
 
@@ -845,38 +1137,76 @@ def time_ssd(Bt, nc, Q, H, hp, G, N) -> dict:
             **ssd_bound(Bt, nc, Q, H, hp, G, N, 2)}
 
 
+NORM_SHAPES = [(4, 128), (2, 33, 256), (1, 7, 5, 64), (37, 1152), (5, 2048), (3, 4096),
+               (2, 8200)]
+
+
+def check_rmsnorm_dispatch() -> dict:
+    """``ops.rmsnorm``'s forward and backward on bf16 CUDA tensors: one
+    launch of the forward kernel and one of the backward's entry point (two
+    device kernels) by the wrappers' counts, and, under torch.profiler (host
+    side), the norm's autograd node ran no operator of the plain backward.
+    Device kernels are counted over the training step's profile
+    (``profile_step``): in sessions of a few microseconds the profiler was
+    seen to drop all but the last kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    x, scale, dy = norm_inputs(generator(30), (64, 2048), torch.bfloat16)
+    x.requires_grad_(True)
+    scale.requires_grad_(True)
+    torch.autograd.grad(ops.rmsnorm(x, scale), (x, scale), dy)   # warm-up: loads the kernels
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.autograd.grad(ops.rmsnorm(x, scale), (x, scale), dy)
+        torch.cuda.synchronize()
+    launched = {k: n for k, n in ops.LAUNCHES.items() if n}
+    nodes, below = norm_backward_ops(prof)
+    plain = sorted(PLAIN_NORM_OPS & set(below))
+    if launched != {"rmsnorm": 1, "rmsnorm_bwd": 1} or nodes != 1 or plain:
+        raise AssertionError(f"ops.rmsnorm forward and backward launched {launched}, "
+                             f"{nodes} RMSNormBackward nodes, operators of the plain "
+                             f"backward beneath: {plain}")
+    return {"launches": launched, "operators_below_the_node": below}
+
+
 def phase_kernels_more(gemma, mamba) -> dict:
-    """rmsnorm, fused_adam and ssd_chunk: fp32 at small shapes, then bf16 at
-    the shapes the training runs give them, timed."""
+    """rmsnorm (forward and backward), fused_adam and ssd_chunk: fp32 at
+    small shapes, then bf16 at the shapes the training runs give them,
+    timed; fused_adam also as one multi-tensor call over whole trees."""
     worst = {"rmsnorm": 0.0, "fused_adam": 0.0}
-    for i, shape in enumerate([(4, 128), (2, 33, 256), (1, 7, 5, 64), (37, 1152),
-                               (5, 2048), (3, 4096), (2, 8200)]):
+    bwd = {"dx": 0.0, "dscale_rel": 0.0}
+    for i, shape in enumerate(NORM_SHAPES):
         worst["rmsnorm"] = max(worst["rmsnorm"],
                                check_rmsnorm(shape, torch.float32, 2e-5, seed=i))
+        bwd = {k: max(v, e) for (k, v), e in zip(
+            bwd.items(), check_rmsnorm_bwd_fp32(shape, seed=40 + i).values(), strict=True)}
     f32 = torch.float32
     for i, (n, count) in enumerate([(2 ** 10, 1), (3 * 2 ** 9, 100), (2 ** 16, 1),
                                     (1_000_003, 100)]):
         leaf = adam_leaf(generator(i), n, f32, f32, f32)
-        worst["fused_adam"] = max(worst["fused_adam"], check_adam(leaf, count, 1e-6))
+        worst["fused_adam"] = max(worst["fused_adam"], check_adam(leaf, count, 0.0))
     mixed = 0.0
-    for i, dts in enumerate([(torch.bfloat16, torch.bfloat16, torch.float32),
-                             (torch.bfloat16, torch.float32, torch.float32),
-                             (torch.float32, torch.float32, torch.bfloat16),
-                             (torch.bfloat16, torch.bfloat16, torch.bfloat16)]):
-        mixed = max(mixed, check_adam(adam_leaf(generator(10 + i), 100_003, *dts), 100, 2e-2))
+    for i, dts in enumerate(ADAM_DTYPES):
+        mixed = max(mixed, check_adam(adam_leaf(generator(10 + i), 100_003, *dts), 100, 0.0))
+    trees = check_adam_trees()
     worst["ssd_chunk"] = check_ssd_fp32()
-    emit("kernels_fp32_more", tol={"rmsnorm": 2e-5, "fused_adam": 1e-6,
-                                   "fused_adam_mixed_dtypes": 2e-2,
+    emit("kernels_fp32_more", tol={"rmsnorm": 2e-5, "rmsnorm_bwd": {"dx": 5e-5,
+                                                                    "dscale_rel": 5e-5},
+                                   "fused_adam": 0.0, "fused_adam_mixed_dtypes": 0.0,
                                    "ssd_chunk": "y, states: atol 2e-4 rtol 2e-5; cum 1e-5"},
-         max_abs_err={**worst, "fused_adam_mixed_dtypes": mixed})
+         max_abs_err={**worst, "rmsnorm_bwd": bwd, "fused_adam_mixed_dtypes": mixed},
+         fused_adam_multi=trees)
     ssd_small = check_ssd_bf16_small()
     emit("kernels_bf16_small_ssd", cases=len(SSD_CASES) + len(SSD_MODEL_CASES), tol=0.2,
          rtol=2e-2, tol_row_rel=BF16_ROW_RTOL, max_abs_err=ssd_small["max_abs_err"],
          max_row_rel_err={k: ssd_small[k] for k in ("y", "states")})
+    emit("kernels_dispatch_rmsnorm", **check_rmsnorm_dispatch())
 
     rows = TRAIN_BATCH * SEQ
-    norms = {d: time_rmsnorm(rows, d) for d in (gemma.d_model, mamba.d_model, mamba.d_inner)}
-    torch.cuda.empty_cache()
+    norms = {}
+    for d in norm_widths(gemma, mamba):
+        norms[d] = time_rmsnorm(rows, d)
+        torch.cuda.empty_cache()
     L = mamba.n_layers
     adam = {"mamba2 scan wz (bf16 p/g, fp32 m/v)": time_adam(
                 (L, mamba.d_model, mamba.d_inner), torch.bfloat16, torch.bfloat16,
@@ -887,20 +1217,31 @@ def phase_kernels_more(gemma, mamba) -> dict:
                 (L, mamba.d_model, mamba.d_inner), torch.float32, torch.float32,
                 torch.float32)}
     torch.cuda.empty_cache()
+    tree = time_adam_tree(mamba)
+    torch.cuda.empty_cache()
     s = mamba.ssm
     ssd_shape = (TRAIN_BATCH, SEQ // s.chunk, s.chunk, mamba.ssm_heads, s.headdim,
                  s.n_groups, s.d_state)
     ssd = time_ssd(*ssd_shape)
     torch.cuda.empty_cache()
-    emit("kernels_bf16_more", tol=2e-2, rmsnorm={f"rows={rows} d={d}": v for d, v in norms.items()},
-         fused_adam=adam,
+    emit("kernels_bf16_more", tol=2e-2, tol_row_rel=BF16_ROW_RTOL, tol_dscale_rel=DSCALE_RTOL,
+         rmsnorm={f"rows={rows} d={d}": v for d, v in norms.items()},
+         fused_adam=adam, fused_adam_tree={"model": mamba.name, **tree},
          ssd_chunk={"shape": dict(zip(("B", "nc", "Q", "H", "hp", "G", "N"), ssd_shape,
                                       strict=True)), **ssd})
-    return {"rmsnorm": {**norms[mamba.d_model], "shape": f"bf16 rows={rows} d={mamba.d_model}",
-                        "other_shapes": {f"d={d}": norms[d] for d in norms if d != mamba.d_model}},
+    shape = f"bf16 rows={rows} d={mamba.d_model}"
+    others = lambda part: {f"d={d}": norms[d][part] for d in norms if d != mamba.d_model}
+    return {"rmsnorm": {**norms[mamba.d_model]["forward"], "shape": shape,
+                        "other_shapes": others("forward")},
+            "rmsnorm_bwd": {**norms[mamba.d_model]["backward"], "shape": shape,
+                            "tol_row_rel": BF16_ROW_RTOL, "tol_dscale_rel": DSCALE_RTOL,
+                            "library_note": "autograd backward of F.rms_norm (dx and the "
+                                            "weight's gradient)",
+                            "other_shapes": others("backward")},
             "fused_adam": {**adam["mamba2 scan wz (bf16 p/g, fp32 m/v)"],
                            "shape": f"mamba2 scan wz leaf {(L, mamba.d_model, mamba.d_inner)}, "
                                     "bf16 p/g, fp32 m/v",
+                           "tree": {"model": mamba.name, **tree},
                            "other_shapes": {k: v for k, v in adam.items()
                                             if not k.startswith("mamba2 scan wz (bf16")}},
             "ssd_chunk": {**ssd, "shape": "bf16 B={} nc={} Q={} H={} hp={} G={} N={}".format(
@@ -912,16 +1253,20 @@ def phase_kernels_more(gemma, mamba) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def expected_launches(cfg, leaves: int) -> dict:
+def expected_launches(cfg, params=None) -> dict:
     """Kernel launches of one training step, derived from the model code.
     Each layer runs its forward once, and once more in the backward when its
     period is recomputed (``cfg.remat != "none"``: every scanned layer; the
     remainder layers are not recomputed).  A layer's forward launches one
     rmsnorm for ln1, one for ln2 when it has an MLP and one for a mamba
     mixer's gated norm, one flash_fwd for an attention mixer and one
-    ssd_chunk for a mamba mixer; its backward one flash_dq and one flash_dkv
-    for attention (rmsnorm and ssd_chunk have no backward kernel).  Then the
-    final norm, and fused_adam once per parameter leaf."""
+    ssd_chunk for a mamba mixer; its backward one rmsnorm_bwd for each of
+    those norms (one call, two device kernels: the rows, then the
+    fixed-order sum of dscale), one flash_dq and one flash_dkv for attention
+    (ssd_chunk has no backward kernel).  Then the final norm and its
+    backward, and, given the parameter tree ``params``, fused_adam once per
+    (p, g, m/v) dtype group of AdamW's leaves (gradients in the params'
+    dtypes, m and v in ``cfg.state_dtype``) and ``fad.MAX_LEAVES`` leaves."""
     period = cfg.scan_period()
     recomputed = (cfg.n_layers // period) * period if cfg.remat != "none" else 0
     out = dict.fromkeys(KERNELS, 0)
@@ -929,13 +1274,19 @@ def expected_launches(cfg, leaves: int) -> dict:
         runs = 2 if i < recomputed else 1
         attn = int(spec.mixer in ("attn", "local"))
         mamba = int(spec.mixer == "mamba")
+        norms = 1 + int(cfg.mlp != "none") + mamba
         out["flash_fwd"] += runs * attn
         out["flash_dq"] += attn
         out["flash_dkv"] += attn
         out["ssd_chunk"] += runs * mamba
-        out["rmsnorm"] += runs * (1 + int(cfg.mlp != "none") + mamba)
+        out["rmsnorm"] += runs * norms
+        out["rmsnorm_bwd"] += norms
     out["rmsnorm"] += 1
-    out["fused_adam"] = leaves
+    out["rmsnorm_bwd"] += 1
+    if params is not None:
+        state = getattr(torch, cfg.state_dtype)
+        out["fused_adam"] = adam_launches((p.dtype, p.dtype, state)
+                                          for p in tree_flatten_with_path(params).values())
     return out
 
 
@@ -966,7 +1317,7 @@ def phase_train(cfg, phase: str, profile: bool) -> dict:
         if losses[0] >= math.log(cfg.vocab) + 1:
             raise AssertionError(f"first loss {losses[0]} >= ln(V) + 1")
         params, opt_state = tr._last_state
-        per_step = expected_launches(cfg, len(tree_flatten_with_path(params)))
+        per_step = expected_launches(cfg, params)
         want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
         if launches != want:
             raise AssertionError(f"launch counts {launches}, expected {want}")
@@ -995,14 +1346,37 @@ def phase_train(cfg, phase: str, profile: bool) -> dict:
         emit(phase, **res)
 
         if profile:
-            profile_step(tr, params, opt_state, phase)
+            profile_step(tr, params, opt_state, phase, per_step)
         return launches
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
-def profile_step(tr, params, opt_state, phase: str) -> None:
-    """One more training step under torch.profiler: device time by kernel."""
+def norm_backward_ops(prof) -> tuple[int, list]:
+    """The calls of the norm's autograd node in a profile, and every
+    operator that ran beneath them (on the host: each launches what it
+    computes).  The node's call itself, not the engine's range around it,
+    which also adds the gradients that meet at the node's inputs."""
+    nodes = [e for e in prof.events() if e.name == "RMSNormBackward"]
+    below, stack = set(), [c for e in nodes for c in e.cpu_children]
+    while stack:
+        e = stack.pop()
+        below.add(e.name)
+        stack.extend(e.cpu_children)
+    return len(nodes), sorted(below)
+
+
+#: what autograd of the plain rmsnorm runs; none may run beneath the norm's
+#: backward node
+PLAIN_NORM_OPS = {"aten::rsqrt", "aten::mean", "aten::pow", "aten::square", "aten::sum",
+                  "aten::mul", "aten::sub", "aten::add", "aten::div", "aten::neg"}
+
+
+def profile_step(tr, params, opt_state, phase: str, per_step: dict) -> None:
+    """One more training step under torch.profiler: device time by kernel.
+    Checks that the norm's backward went through its kernel: two device
+    kernels a call (``per_step["rmsnorm_bwd"]`` calls), and no operator of
+    autograd of the plain version beneath its autograd node."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import make_batch
@@ -1022,7 +1396,8 @@ def profile_step(tr, params, opt_state, phase: str) -> None:
     total = sum(r[0] for r in rows)
     groups = {"flash_fwd": ("fa::flash_fwd",), "flash_dq": ("fa::flash_dq",),
               "flash_dkv": ("fa::flash_dkv",), "ssd_chunk": ("ssd::ssd_chunk",),
-              "rmsnorm": ("rn::rmsnorm",), "fused_adam": ("adam::adam",),
+              "rmsnorm_bwd": ("rn::rmsnorm_bwd",), "rmsnorm": ("rn::rmsnorm",),
+              "fused_adam": ("adam::adam",),
               "matmul": ("nvjet", "gemm", "cutlass"),
               "elementwise": ("elementwise",), "reduce": ("reduce",),
               "memcpy_memset": ("Memcpy", "Memset")}
@@ -1030,8 +1405,17 @@ def profile_step(tr, params, opt_state, phase: str) -> None:
     for ms, _, key in rows:
         group = next((g for g, pats in groups.items() if any(p in key for p in pats)), "other")
         by_group[group] += ms
+    bwd_kernels = sum(n for _, n, key in rows if "rn::rmsnorm_bwd" in key)
+    nodes, below = norm_backward_ops(prof)
+    plain = sorted(PLAIN_NORM_OPS & set(below))
+    if bwd_kernels != 2 * per_step["rmsnorm_bwd"] or nodes != per_step["rmsnorm_bwd"] or plain:
+        raise AssertionError(
+            f"{phase} profile: {bwd_kernels} rmsnorm_bwd device kernels and {nodes} "
+            f"RMSNormBackward nodes (expected {2 * per_step['rmsnorm_bwd']} and "
+            f"{per_step['rmsnorm_bwd']}); operators of the plain backward beneath them: {plain}")
     emit("profile", of=phase, step_wall_ms=wall * 1e3, device_busy_ms=total,
          by_group_ms={g: round(ms, 2) for g, ms in by_group.items()},
+         norm_backward={"nodes": nodes, "device_kernels": bwd_kernels, "operators_below": below},
          top=[{"ms": round(ms, 3), "calls": n, "kernel": key[:90]}
               for ms, n, key in rows[:16]])
 
@@ -1059,7 +1443,7 @@ def parity(cfg, phase: str, seq: int) -> None:
         loss, _ = lm_loss(params, replace(cfg, use_flash=flash), inputs, labels)
         grads = torch.autograd.grad(loss, leaves)
         out[flash] = (loss.item(), grads, dict(ops.LAUNCHES))
-    want = {k: v for k, v in expected_launches(cfg, 0).items() if k != "fused_adam"}
+    want = {k: v for k, v in expected_launches(cfg).items() if k != "fused_adam"}
     got = {k: v for k, v in out[True][2].items() if k != "fused_adam"}
     if got != want or any(out[False][2].values()):
         raise AssertionError(f"kernel launches: kernel path {got} (expected {want}), "
@@ -1106,7 +1490,7 @@ def main() -> None:
     if "env" in phases:
         phase_env()
     if "build" in phases:
-        phase_build()
+        phase_build(norm_widths(gemma, mamba))
     timed = None
     if "kernels" in phases:
         timed = phase_kernels_flash(gemma)
@@ -1131,7 +1515,7 @@ def main() -> None:
         for name, meta in KERNELS.items():
             by_path = {path: counts[name] for path, counts in launches.items()}
             # a kernel's own path: gemma3-1b for the flash kernels, mamba2-1.3b
-            # for the three this slice added (they run on both)
+            # for the others (rmsnorm, its backward and fused_adam run on both)
             own = "train" if name in FLASH else "train_ssm"
             entry = {"name": name, **meta, "launches": by_path[own],
                      "launches_by_path": by_path}
@@ -1166,7 +1550,9 @@ def main() -> None:
                               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                               "shape": t["shape"]})
                 for key in ("library_note", "backward_plain_ms", "other_shapes", "grid",
-                            "max_row_rel_err", "tol_row_rel"):
+                            "max_row_rel_err", "tol_row_rel", "dscale_rel_err",
+                            "tol_dscale_rel", "autograd_of_plain_ms", "planted_faults",
+                            "tree"):
                     if key in t:
                         entry[key] = t[key]
             line.append(entry)

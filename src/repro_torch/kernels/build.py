@@ -28,9 +28,13 @@ SOURCES = ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm", "fused_adam", "ssd_c
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: launches per kernel, counted by each wrapper where it launches its kernel
-#: and nowhere else
-LAUNCHES = dict.fromkeys(SOURCES, 0)
+#: the counted C entry points, each named by its symbol, and the source whose
+#: library holds it: one per source, and the rmsnorm backward beside its
+#: forward
+ENTRY_POINTS = {**{name: name for name in SOURCES}, "rmsnorm_bwd": "rmsnorm"}
+#: launches per entry point, counted by each wrapper where it launches its
+#: kernel and nowhere else
+LAUNCHES = dict.fromkeys(ENTRY_POINTS, 0)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: filled by the build: seconds, and ptxas' per-kernel resource lines
@@ -132,12 +136,13 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, argtypes: list, device, *args) -> None:
-    """Call ``csrc/<name>.cu``'s C entry point ``name`` with ``args`` and the
-    current CUDA stream of ``device`` (appended as the last argument).  The
-    entry point returns ``cudaGetLastError()`` of its launch; anything but 0
-    raises.  A successful launch adds one to ``LAUNCHES[name]``."""
+    """Call the C entry point ``name`` (of the library of
+    ``csrc/<ENTRY_POINTS[name]>.cu``) with ``args`` and the current CUDA
+    stream of ``device`` (appended as the last argument).  The entry point
+    returns ``cudaGetLastError()`` of its launch; anything but 0 raises.  A
+    successful launch adds one to ``LAUNCHES[name]``."""
     import torch
-    fn = getattr(load_library(name), name)
+    fn = getattr(load_library(ENTRY_POINTS[name]), name)
     fn.argtypes = [*argtypes, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):

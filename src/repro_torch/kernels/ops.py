@@ -5,10 +5,13 @@
   fallback from one to the other;
 * ``flash_attention`` is one ``torch.autograd.Function`` wiring the recompute
   backward (dq kernel, then dk/dv kernel) from the saved ``(q,k,v,o,lse)``;
-  ``rmsnorm`` and ``ssd_chunk`` are ``torch.autograd.Function``s whose
-  backward is autograd of the plain version (the TPU kernels have none);
-  ``fused_adam`` updates one leaf in place;
-* ``LAUNCHES`` counts the launches of all six kernels (``build.LAUNCHES``).
+  ``rmsnorm`` is one whose backward is the rmsnorm backward kernel (the TPU
+  kernel has none: JAX differentiates the reference); ``ssd_chunk``'s
+  backward is autograd of the plain version (the TPU kernel has none);
+* ``fused_adam_multi`` updates lists of leaves in place, one launch per
+  dtype group (``fused_adam`` is a list of one);
+* ``LAUNCHES`` counts the launches of every C entry point: the six kernels
+  and the rmsnorm backward (``build.LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -83,14 +86,21 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return RMSNorm.apply(x, scale, eps)
 
 
-def fused_adam(p, g, m, v, count, lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0):
-    """One AdamW step on one leaf of any shape, **in place** on ``p``, ``m``
-    and ``v``.  ``count``: the post-increment step, an int32 tensor on the
-    leaf's device."""
-    if _on_cpu(p):
-        _ad.fused_adam_plain(p, g, m, v, count, lr, b1, b2, eps, weight_decay)
+def fused_adam_multi(ps, gs, ms, vs, count, lr, b1=0.9, b2=0.95, eps=1e-8,
+                     weight_decay=0.0):
+    """One AdamW step on lists of leaves of any shapes, **in place** on every
+    ``p``, ``m`` and ``v``.  ``count``: the post-increment step, an int32
+    tensor on the leaves' device.  The plain version when every leaf lies on
+    the CPU; otherwise the kernel, which raises for a leaf off the device."""
+    if all(_on_cpu(p) for p in ps):
+        _ad.fused_adam_multi_plain(ps, gs, ms, vs, count, lr, b1, b2, eps, weight_decay)
     else:
-        _ad.fused_adam_cuda(p, g, m, v, count, lr, b1, b2, eps, weight_decay)
+        _ad.fused_adam_multi_cuda(ps, gs, ms, vs, count, lr, b1, b2, eps, weight_decay)
+
+
+def fused_adam(p, g, m, v, count, lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0):
+    """``fused_adam_multi`` on one leaf."""
+    fused_adam_multi([p], [g], [m], [v], count, lr, b1, b2, eps, weight_decay)
 
 
 def ssd_chunk_heads(x, dt, b, c, a):

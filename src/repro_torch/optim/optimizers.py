@@ -9,10 +9,11 @@ parameter model does not hold two copies of its state.  Callers must not keep
 the old values.
 
 This slice ports AdamW; the other optimizers of the reference raise until
-their slice.  The update is ``kernels.ops.fused_adam``, one call per leaf:
-the plain PyTorch version for CPU tensors, the CUDA kernel for CUDA tensors
-(the same fp32 formula; the reference's optimizer computes it outside its
-kernel, the port goes through the kernel).
+their slice.  The update is ``kernels.ops.fused_adam_multi``, one call a
+step over every leaf: the plain PyTorch version for CPU tensors, the CUDA
+kernel for CUDA tensors, one launch per dtype group (the same fp32 formula;
+the reference's optimizer computes it outside its kernel, the port goes
+through the kernel).
 """
 
 from __future__ import annotations
@@ -81,11 +82,11 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         count = state["count"] + 1
         lr_t = float(lr_fn(step))
 
-        def upd(p, g, m, v):
-            # fp32 math; weight decay acts on the old p; in place
-            ops.fused_adam(p, g, m, v, count, lr_t, b1, b2, eps, weight_decay)
-
-        tree_map(upd, params, grads, state["m"], state["v"])
+        leaves = []
+        tree_map(lambda *t: leaves.append(t), params, grads, state["m"], state["v"])
+        # fp32 math; weight decay acts on the old p; in place
+        ops.fused_adam_multi(*zip(*leaves, strict=True), count, lr_t, b1, b2, eps,
+                             weight_decay)
         return params, {"m": state["m"], "v": state["v"], "count": count}
 
     return Optimizer("adamw", init, update)

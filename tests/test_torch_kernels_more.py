@@ -9,8 +9,11 @@ against these plain versions on the card by ``chip_smoke.py``.
 
 Tolerances are those of tests/test_kernels.py: 2e-5 fp32 and 2e-2 bf16
 (abs and rel), ten times the absolute one for the SSD chunk (sums over a
-whole chunk), 1e-5 for its ``cum``, 1e-6 for Adam; 5e-5 for fp32 gradients.
+whole chunk), 1e-5 for its ``cum``, 1e-6 for Adam; 5e-5 for fp32 gradients
+(the rmsnorm backward's dscale: 5e-5 of its largest entry, a sum over rows).
 """
+
+import re
 
 import os
 
@@ -24,11 +27,13 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.kernels.ssd_chunk import ssd_chunk as pallas_ssd_chunk
 from repro.optim import optimizers as ref_optim
-from repro_torch.convert import numpy_to_tensor
+from repro_torch.configs import smoke_config
+from repro_torch.convert import numpy_to_tensor, tree_leaves
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import fused_adam as fad
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_chunk as sc
+from repro_torch.models.transformer import init_params
 from repro_torch.optim import optimizers as optim
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -96,6 +101,64 @@ def test_rmsnorm_grads_match_jax_grad():
         np.testing.assert_allclose(f32(a), f32(b), atol=5e-5)
 
 
+def jax_rmsnorm_grads(jx, js, jdy):
+    """(dx, dscale) of ``sum(rmsnorm_ref(x, scale) * dy)`` by jax.grad."""
+    return jax.grad(lambda x, s: jnp.sum(ref_ref.rmsnorm_ref(x, s).astype(jnp.float32) * jdy),
+                    argnums=(0, 1))(jx, js)
+
+
+@pytest.mark.parametrize("shape", [(6, 64), (16, 1152), (4, 4096)])
+def test_rmsnorm_bwd_plain_matches_jax_grad(shape):
+    """The backward kernel's arithmetic (``rmsnorm_bwd_plain``) against
+    jax.grad of the reference's oracle, fp32: dx to 5e-5, dscale to 5e-5 of
+    its largest entry."""
+    rng = np.random.default_rng(16)
+    jx, tx = rand(rng, shape)
+    js, ts = rand(rng, (shape[-1],), scale=0.1)
+    jdy, tdy = rand(rng, shape)
+    want_dx, want_ds = jax_rmsnorm_grads(jx, js, jdy)
+    dx, ds = rn.rmsnorm_bwd_plain(tx, ts, tdy)
+    assert dx.dtype == tx.dtype and dx.shape == tx.shape
+    assert ds.dtype == torch.float32 and ds.shape == ts.shape
+    np.testing.assert_allclose(f32(dx), f32(want_dx), atol=5e-5)
+    np.testing.assert_allclose(f32(ds), f32(want_ds), atol=5e-5 * float(np.abs(want_ds).max()))
+
+
+@pytest.mark.parametrize("shape", [(6, 64), (16, 1152), (3, 5, 2048)])
+def test_rmsnorm_bwd_plain_matches_autograd_of_plain_in_bf16(shape):
+    """bf16 x and dy: the stated backward against autograd of
+    ``rmsnorm_plain`` (fp32 inside, one cast), dx to the bf16 tolerance and
+    dscale (fp32 on both sides) to 5e-5 of its largest entry."""
+    rng = np.random.default_rng(17)
+    _, x = rand(rng, shape, "bfloat16")
+    _, s = rand(rng, (shape[-1],), scale=0.1)
+    _, dy = rand(rng, shape, "bfloat16")
+    xa, sa = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    want_dx, want_ds = torch.autograd.grad(rn.rmsnorm_plain(xa, sa), (xa, sa), dy)
+    dx, ds = rn.rmsnorm_bwd_plain(x, s, dy)
+    assert dx.dtype == want_dx.dtype == torch.bfloat16
+    np.testing.assert_allclose(f32(dx), f32(want_dx), atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    np.testing.assert_allclose(f32(ds), f32(want_ds), atol=5e-5 * float(want_ds.abs().max()))
+
+
+def test_rmsnorm_function_takes_the_plain_backward_on_cpu(monkeypatch):
+    """``RMSNorm``'s backward on CPU tensors is ``rmsnorm_bwd_plain`` (the
+    CUDA tensor's is the kernel), not autograd of the forward's plain
+    version: its gradients are that function's to the bit."""
+    rng = np.random.default_rng(18)
+    _, x = rand(rng, (5, 7, 64))
+    _, s = rand(rng, (64,), scale=0.1)
+    _, dy = rand(rng, (5, 7, 64))
+    calls = []
+    plain = rn.rmsnorm_bwd_plain
+    monkeypatch.setattr(rn, "rmsnorm_bwd_plain", lambda *a: calls.append(a) or plain(*a))
+    xa, sa = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    got = torch.autograd.grad(ops.rmsnorm(xa, sa), (xa, sa), dy)
+    assert len(calls) == 1
+    for a, b in zip(got, plain(x, s, dy), strict=True):
+        assert torch.equal(a, b)
+
+
 def test_rmsnorm_kernel_order_differs_from_the_models_in_bf16():
     """Trap T1: the kernel multiplies by (1 + scale) in fp32 and casts once;
     ``layers.rmsnorm`` casts first.  Equal in fp32, not in bf16."""
@@ -148,6 +211,69 @@ def test_fused_adam_mixed_dtypes_match_pallas(dtypes):
     for a, b in zip((p, m, v), want, strict=True):
         assert str(a.dtype)[6:] == str(b.dtype)
         np.testing.assert_allclose(f32(a), f32(b), atol=2e-2, rtol=2e-2)
+
+
+#: leaves of several sizes (some not multiples of 8) and dtypes (p, g, m/v)
+MIXED_TREE = [((64, 8), ("bfloat16", "bfloat16", "float32")), ((13,), ("float32",) * 3),
+              ((3, 40), ("bfloat16", "bfloat16", "float32")), ((4096,), ("float32",) * 3),
+              ((7,), ("bfloat16", "float32", "float32")), ((5, 24), ("float32", "float32",
+                                                                    "bfloat16"))]
+
+
+def test_fused_adam_multi_plain_is_per_leaf_plain_and_pallas():
+    """The multi-tensor entry point on a mixed-dtype tree: on the CPU it is
+    ``fused_adam_plain`` leaf by leaf, bit for bit, and it agrees with the
+    Pallas kernel in interpret mode (1e-6 where every buffer is fp32, 2e-2
+    where one is bf16)."""
+    rng = np.random.default_rng(19)
+    leaves = []
+    for shape, dts in MIXED_TREE:
+        n = int(np.prod(shape))
+        jl, tl = adam_inputs(rng, n, *dts)
+        leaves.append(([a.reshape(shape) for a in jl], [t.reshape(shape) for t in tl]))
+    mine = [[t.clone() for t in tl] for _, tl in leaves]
+    per_leaf = [[t.clone() for t in tl] for _, tl in leaves]
+    count = torch.tensor(7, dtype=torch.int32)
+    ops.fused_adam_multi(*zip(*mine, strict=True), count, 1e-2, weight_decay=0.01)
+    for leaf in per_leaf:
+        fad.fused_adam_plain(*leaf, count, 1e-2, weight_decay=0.01)
+    for (jl, _), got, same in zip(leaves, mine, per_leaf, strict=True):
+        want = ref_ops.fused_adam(*jl, jnp.int32(7), lr=1e-2, weight_decay=0.01)
+        tol = 1e-6 if all(t.dtype == torch.float32 for t in got) else 2e-2
+        for a, b, w in zip((got[0], got[2], got[3]), (same[0], same[2], same[3]), want,
+                           strict=True):
+            assert torch.equal(a, b)
+            np.testing.assert_allclose(f32(a), f32(w), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-1.3b"])
+def test_launch_groups_of_the_smoke_models_are_two(arch):
+    """AdamW's leaves fall into two dtype groups, bf16 matrices with fp32
+    state and fp32 vectors, each within one launch."""
+    params = init_params(smoke_config(arch), 0, "cpu")
+    state = optim.adamw().init(params)
+    ps, ms = tree_leaves(params), tree_leaves(state["m"])
+    groups = fad.launch_groups(ps, ps, ms)
+    assert len(groups) == 2
+    assert sorted(i for g in groups for i in g) == list(range(len(ps)))
+    assert {(ps[g[0]].dtype, ms[g[0]].dtype) for g in groups} == {
+        (torch.bfloat16, torch.float32), (torch.float32, torch.float32)}
+
+
+def test_launch_groups_split_at_the_table_capacity():
+    """More leaves of one dtype than one launch's table holds: runs of at
+    most ``MAX_LEAVES`` in order; a leaf without elements takes no launch."""
+    cap = fad.MAX_LEAVES
+    ps = [torch.zeros(3) for _ in range(2 * cap + 5)] + [torch.zeros(0)]
+    ps += [torch.zeros(2, dtype=torch.bfloat16)]
+    groups = fad.launch_groups(ps, ps, ps)
+    assert [len(g) for g in groups] == [cap, cap, 5, 1]
+    assert sum(groups[:3], []) == list(range(2 * cap + 5)) and groups[3] == [len(ps) - 1]
+
+
+def test_max_leaves_is_the_kernels():
+    text = open(os.path.join(CSRC, "fused_adam.cu")).read()
+    assert int(re.search(r"constexpr int MAX_LEAVES = (\d+);", text).group(1)) == fad.MAX_LEAVES
 
 
 def test_fused_adam_matches_optimizer():
@@ -358,14 +484,22 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     ops.rmsnorm(x, torch.zeros(64))
     _, (p, g, m, v) = adam_inputs(rng, 64)
     ops.fused_adam(p, g, m, v, torch.tensor(1, dtype=torch.int32), 1e-3)
+    ops.fused_adam_multi([p, m], [g, v], [m.clone(), m.clone()], [v.clone(), v.clone()],
+                         torch.tensor(2, dtype=torch.int32), 1e-3)
     ops.ssd_chunk(*ssd_inputs(rng, 2, 1, 32, 16, 16)[1])
+    xg = x.clone().requires_grad_(True)
+    ops.rmsnorm(xg, torch.zeros(64)).sum().backward()
     assert ops.LAUNCHES == before
 
 
 def test_six_kernels_are_built_counted_and_documented():
     assert build.SOURCES == ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm", "fused_adam",
                              "ssd_chunk")
-    assert list(ops.LAUNCHES) == list(build.SOURCES) and ops.LAUNCHES is build.LAUNCHES
+    # every source's entry point, and the rmsnorm backward in rmsnorm.cu
+    assert build.ENTRY_POINTS == {**{n: n for n in build.SOURCES}, "rmsnorm_bwd": "rmsnorm"}
+    assert list(ops.LAUNCHES) == list(build.ENTRY_POINTS) and ops.LAUNCHES is build.LAUNCHES
+    for entry, source in build.ENTRY_POINTS.items():
+        assert f'extern "C" int {entry}(' in open(os.path.join(CSRC, f"{source}.cu")).read()
     tpu = {"flash_fwd": "_fwd_kernel", "flash_dq": "flash_attention.py",
            "flash_dkv": "flash_attention.py", "rmsnorm": "_rmsnorm_kernel",
            "fused_adam": "_adam_kernel", "ssd_chunk": "_ssd_chunk_kernel"}
@@ -387,11 +521,39 @@ def _bad_input(kind):
         return rn.rmsnorm_cuda, (x, torch.zeros(64)), TypeError
     if kind == "adam_cpu":
         _, leaf = adam_inputs(rng, 64)
-        return fad.fused_adam_cuda, (*leaf, torch.tensor(1, dtype=torch.int32), 1e-3), ValueError
+        leaves = tuple([t] for t in leaf)
+        return (fad.fused_adam_multi_cuda, (*leaves, torch.tensor(1, dtype=torch.int32), 1e-3),
+                ValueError)
     if kind == "adam_dtype":
         _, (p, g, m, v) = adam_inputs(rng, 64)
-        return (fad.fused_adam_cuda, (p.half(), g, m, v, torch.tensor(1, dtype=torch.int32),
-                                      1e-3), TypeError)
+        return (fad.fused_adam_multi_cuda, ([p.half()], [g], [m], [v],
+                                            torch.tensor(1, dtype=torch.int32), 1e-3), TypeError)
+    if kind.startswith("rmsnorm_bwd"):
+        x, dy = rand(rng, (4, 64))[1], rand(rng, (4, 64))[1]
+        if kind == "rmsnorm_bwd_cpu":
+            return rn.rmsnorm_bwd_cuda, (x, torch.zeros(64), dy), ValueError
+        if kind == "rmsnorm_bwd_dy_dtype":
+            return rn.rmsnorm_bwd_cuda, (x, torch.zeros(64), dy.bfloat16()), TypeError
+        if kind == "rmsnorm_bwd_dy_shape":
+            return rn.rmsnorm_bwd_cuda, (x, torch.zeros(64), dy[:2]), ValueError
+        raise KeyError(kind)
+    if kind.startswith("adam_multi"):
+        leaves = [adam_inputs(rng, n)[1] for n in (64, 13)]
+        if kind == "adam_multi_misaligned":
+            # contiguous, but starting one element past a 16-byte boundary
+            p = leaves[1][0]
+            leaves[1][0] = torch.empty(p.numel() + 1)[1:].copy_(p)
+            match = "16-byte"
+        elif kind == "adam_multi_mv_dtypes":
+            leaves[1][3] = leaves[1][3].bfloat16()
+        elif kind == "adam_multi_cpu":
+            match = "CUDA device"
+        else:
+            raise KeyError(kind)
+        args = (*zip(*leaves, strict=True), torch.tensor(1, dtype=torch.int32), 1e-3)
+        if kind == "adam_multi_mv_dtypes":
+            return fad.fused_adam_multi_cuda, args, TypeError
+        return fad.fused_adam_multi_cuda, args, ValueError, match
     _, (x, dt, b, c, a) = ssd_inputs(rng, 2, 1, 32, 16, 16)
     heads = (*ref.to_heads(x, dt, b, c), a)
     if kind == "ssd_cpu":
@@ -419,11 +581,15 @@ def _bad_input(kind):
 
 @pytest.mark.parametrize("kind", ["rmsnorm_cpu", "rmsnorm_width", "rmsnorm_dtype", "adam_cpu",
                                   "adam_dtype", "ssd_cpu", "ssd_head_dim", "ssd_chunk_len",
-                                  "ssd_bf16_misaligned", "ssd_bf16_row_stride"])
+                                  "ssd_bf16_misaligned", "ssd_bf16_row_stride",
+                                  "rmsnorm_bwd_cpu", "rmsnorm_bwd_dy_dtype",
+                                  "rmsnorm_bwd_dy_shape", "adam_multi_cpu",
+                                  "adam_multi_misaligned", "adam_multi_mv_dtypes"])
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(kind):
     """The CUDA wrappers never compute anything for inputs outside the
     kernels' contract (CPU tensors included), and never fall back.  The bf16
-    SSD cases raise on the alignment itself, before the device is looked at."""
+    SSD cases and the misaligned Adam leaf raise on the alignment itself,
+    before the device is looked at."""
     fn, args, exc, *match = _bad_input(kind)
     before = dict(ops.LAUNCHES)
     with pytest.raises(exc, match=match[0] if match else None):

@@ -98,6 +98,35 @@ def test_adamw_updates_in_place():
     np.testing.assert_allclose(f32(p["w"]), 1.0 - 0.1 * step, rtol=1e-6)
 
 
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-1.3b"])
+def test_adamw_update_is_one_multi_tensor_call(arch, monkeypatch):
+    """``adamw().update`` makes one ``ops.fused_adam_multi`` call a step over
+    every leaf of the tree, and gives, bit for bit, what ``fused_adam_plain``
+    gives leaf by leaf."""
+    from repro_torch.kernels import fused_adam as fad
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params
+    params = init_params(configs.smoke_config(arch), 0, "cpu")
+    rng = np.random.default_rng(3)
+    grads = tree_map(lambda p: torch.from_numpy(
+        rng.standard_normal(tuple(p.shape)).astype(np.float32)).to(p.dtype), params)
+    opt = optim.adamw(lr=1e-3, weight_decay=0.01)
+    state = opt.init(params)
+    want = {k: [t.clone() for t in leaf] for k, leaf in zip(
+        tree_flatten_with_path(params), zip(*(tree_flatten_with_path(t).values() for t in (
+            params, grads, state["m"], state["v"])), strict=True), strict=True)}
+    calls = []
+    multi = ops.fused_adam_multi
+    monkeypatch.setattr(ops, "fused_adam_multi", lambda *a: calls.append(len(a[0])) or multi(*a))
+    newp, newst = opt.update(grads, state, params, 0)
+    assert calls == [len(want)]
+    count = torch.tensor(1, dtype=torch.int32)
+    for key, (p, g, m, v) in want.items():
+        fad.fused_adam_plain(p, g, m, v, count, 1e-3, weight_decay=0.01)
+        for a, b in ((newp, p), (newst["m"], m), (newst["v"], v)):
+            assert torch.equal(tree_flatten_with_path(a)[key], b), key
+
+
 @pytest.mark.parametrize("name", ["sgd_momentum", "adafactor", "galore_adamw"])
 def test_other_optimizers_wait_for_their_slice(name):
     assert name in ref_optim.OPTIMIZERS
