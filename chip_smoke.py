@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
     python3 chip_smoke.py --phases env,build,kernels
-    python3 chip_smoke.py --profile       # adds one profiled training step
+    python3 chip_smoke.py --profile       # adds one profiled training step and
+                                          # eight profiled decode steps a model
 
 Phases, each printing one JSON line (or a few):
   env         versions, device name, power limit
   build       compiles the CUDA kernels from src/repro_torch/kernels/csrc
   kernels     each of the six kernels and the rmsnorm backward against its
               plain PyTorch version on the card: fp32 at small shapes, bf16
-              at the training shapes; the flash and SSD kernels' small shapes
+              at the training shapes (the norm also at MLA's widths, at
+              train_mla's rows and at a decode step's 8); the flash and SSD
+              kernels' small shapes
               also in bf16 (their tensor-core kernels), flash beside the
               library's own bf16 error, planted faults that the bf16 checks
               must see, and a profiler check of which device kernel each
@@ -27,8 +30,19 @@ Phases, each printing one JSON line (or a few):
               kernels and no operator of the plain backward)
   train_ssm   the same for full-width, full-depth mamba2-1.3b through the
               ssd_chunk, rmsnorm and fused_adam kernels
+  train_mla   the same for minicpm3-4b (MLA) at full width and 4 layers,
+              batch 2 x 4096, 4 steps
+  serve       make_serve_step on full-width, full-depth gemma3-1b,
+              mamba2-1.3b and minicpm3-4b: 8 sequences, a 512-token prompt
+              fed token by token, then 256 greedy tokens (768 calls, cache of
+              1024); rmsnorm launches per call, decode == the teacher-forced
+              forward (flash, ssd_chunk and rmsnorm kernels) a row at a time,
+              and three planted faults that check must see
   parity      kernel path == plain path (loss and grads), small fp32 gemma3
   parity_ssm  the same for a small fp32 mamba2
+  parity_serve  small fp32 gemma3 (window 8), mamba2 and minicpm3: decode on
+              the kernel path == decode on the plain path == the forward;
+              minicpm3's kernel path == plain path for loss and grads
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 non-zero and the last line is not printed.  There is no CPU fallback.
@@ -37,6 +51,7 @@ non-zero and the last line is not printed.  There is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -62,6 +77,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.ckpt.store import latest_step, load_checkpoint  # noqa: E402
 from repro_torch.configs import get_config, get_shape, smoke_config  # noqa: E402
 from repro_torch.convert import tree_flatten_with_path, tree_map  # noqa: E402
+from repro_torch.data.pipeline import make_tokens  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_adam as fad  # noqa: E402
@@ -69,8 +85,10 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
 from repro_torch.launch.train import Trainer  # noqa: E402
-from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.models import attention, ssm, transformer  # noqa: E402
+from repro_torch.models.transformer import init_cache, init_params, logits_fn  # noqa: E402
 from repro_torch.training.loss import lm_loss  # noqa: E402
+from repro_torch.training.train_step import make_serve_step  # noqa: E402
 
 DEV = "cuda"
 PEAK_FLOPS = 989e12      # H100 SXM, dense bf16 tensor cores (data sheet)
@@ -79,6 +97,11 @@ PEAK_BYTES = 3.35e12     # H100 SXM, HBM3 (data sheet)
 TRAIN_STEPS = 6
 TRAIN_BATCH = 4
 SEQ = 4096
+#: train_mla: minicpm3-4b at full width, depth cut to 4 of 62 layers (62 need
+#: ≈ 12 B/param × 4.3 B ≈ 51 GB of weights and AdamW state before activations)
+MLA_LAYERS, MLA_BATCH, MLA_STEPS = 4, 2, 4
+#: serve: sequences, prompt tokens, greedy tokens, cache slots, warm-up calls
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ, SERVE_WARMUP = 8, 512, 256, 1024, 16
 
 TC_PATH = ("mma.sync.aligned.m16n8k16 bf16 x bf16 -> fp32 (tensor cores), ldmatrix, "
            "cp.async two-stage ring")
@@ -151,17 +174,21 @@ def phase_env() -> None:
          device_count=torch.cuda.device_count(), nvidia_smi=smi())
 
 
-def norm_widths(gemma, mamba) -> tuple[int, ...]:
-    """The widths the training paths normalise through ``ops.rmsnorm``."""
-    return gemma.d_model, mamba.d_model, mamba.d_inner
+def norm_widths(gemma, mamba, mla) -> tuple[int, ...]:
+    """The widths the training and serve paths normalise through
+    ``ops.rmsnorm``: the block norms, mamba's gated norm and MLA's ``q_ln``
+    and ``kv_ln``."""
+    return (gemma.d_model, mamba.d_model, mamba.d_inner, mla.d_model, mla.mla.q_lora_rank,
+            mla.mla.kv_lora_rank)
 
 
 def memory_bound_kernels(widths) -> dict[str, dict[str, int]]:
     """ptxas names (mangled-name prefixes) of the memory-bound kernels the
-    training paths launch, by source, each with its count of
+    training and serve paths launch, by source, each with its count of
     instantiations: the bf16 rmsnorm forward and backward at ``widths``
     (``rn::rmsnorm_kernel<T, TPR, MAXV>``, ``rn::rmsnorm_bwd_kernel<...>``,
-    named by their launch geometry), the backward's fixed-order sum, and
+    named by their launch geometry, which the width alone decides; widths
+    that share one are named once), the backward's fixed-order sum, and
     every ``adam::adam_kernel<P, G, S>`` (the paths' two among the eight)."""
     rows = TRAIN_BATCH * SEQ
     norm = {"_ZN2rn25rmsnorm_bwd_reduce_kernel": 1}
@@ -736,14 +763,16 @@ def rmsnorm_bwd_faults(x, scale, dy, dx_p, ds_p) -> dict:
     return out
 
 
-def time_rmsnorm(rows, d) -> dict:
+def time_rmsnorm(rows, d, cold=True) -> dict:
     """Forward and backward at (rows, d) in bf16: checked (forward 2e-2 and a
     row within ``BF16_ROW_RTOL``; backward dx a row within ``BF16_ROW_RTOL``,
     dscale within ``DSCALE_RTOL`` of its largest entry; two planted faults)
-    and timed over rotated inputs (a cold L2), beside the plain versions,
-    autograd of the plain forward (the backward before the kernel) and the
-    library: ``F.rms_norm`` with weight (1 + scale) in x's dtype and its
-    autograd backward, which the port never calls."""
+    and timed over rotated inputs (a cold L2; with ``cold`` false one input
+    set, warm in L2, as a decode step's norm finds the row its previous
+    operation just wrote), beside the plain versions, autograd of the plain
+    forward (the backward before the kernel) and the library: ``F.rms_norm``
+    with weight (1 + scale) in x's dtype and its autograd backward, which the
+    port never calls."""
     dt = torch.bfloat16
     x, scale, dy = norm_inputs(generator(11), (rows, d), dt)
     y, y_p = rn.rmsnorm_cuda(x, scale), rn.rmsnorm_plain(x, scale)
@@ -764,17 +793,18 @@ def time_rmsnorm(rows, d) -> dict:
     del y, y_p, dx, dx_p
 
     size = rows * d * x.element_size()
-    sets = rotating_sets(lambda i: norm_inputs(generator(20 + i), (rows, d), dt), size)
+    sets = (rotating_sets(lambda i: norm_inputs(generator(20 + i), (rows, d), dt), size)
+            if cold else [(x, scale, dy)])
     w = (1.0 + scale).to(dt)
     fwd.update(ms=time_rotating(lambda a, s, _: rn.rmsnorm_cuda(a, s), sets, 20),
                plain_ms=time_ms(lambda: rn.rmsnorm_plain(x, scale), 5),
                library_ms=time_rotating(lambda a, _, __: F.rms_norm(a, (d,), w, 1e-6), sets, 20),
-               grid=rn.grid(d, rows, True, False, x.device.index),
+               grid=rn.grid(d, rows, True, False, x.device.index), l2="cold" if cold else "warm",
                **rmsnorm_bound(rows, d, x.element_size()))
     bwd.update(ms=time_rotating(rn.rmsnorm_bwd_cuda, sets, 20),
                plain_ms=time_ms(lambda: rn.rmsnorm_bwd_plain(x, scale, dy), 5),
                autograd_of_plain_ms=backward_ms(rn.rmsnorm_plain, (x, scale), 5),
-               grid=rn.grid(d, rows, True, True, x.device.index),
+               grid=rn.grid(d, rows, True, True, x.device.index), l2="cold" if cold else "warm",
                **rmsnorm_bwd_bound(rows, d, x.element_size()))
     # library backward: autograd of F.rms_norm, one graph a set
     graphs = []
@@ -1141,6 +1171,13 @@ NORM_SHAPES = [(4, 128), (2, 33, 256), (1, 7, 5, 64), (37, 1152), (5, 2048), (3,
                (2, 8200)]
 
 
+def mla_norm_shapes(mla) -> list[tuple[int, int]]:
+    """(rows, d) the MLA paths give the norm: train_mla's B·S rows and a
+    decode step's 8, at minicpm3's d_model, q_lora_rank and kv_lora_rank."""
+    return [(rows, d) for rows in (MLA_BATCH * SEQ, SERVE_BATCH)
+            for d in (mla.d_model, mla.mla.q_lora_rank, mla.mla.kv_lora_rank)]
+
+
 def check_rmsnorm_dispatch() -> dict:
     """``ops.rmsnorm``'s forward and backward on bf16 CUDA tensors: one
     launch of the forward kernel and one of the backward's entry point (two
@@ -1169,13 +1206,14 @@ def check_rmsnorm_dispatch() -> dict:
     return {"launches": launched, "operators_below_the_node": below}
 
 
-def phase_kernels_more(gemma, mamba) -> dict:
+def phase_kernels_more(gemma, mamba, mla) -> dict:
     """rmsnorm (forward and backward), fused_adam and ssd_chunk: fp32 at
-    small shapes, then bf16 at the shapes the training runs give them,
-    timed; fused_adam also as one multi-tensor call over whole trees."""
+    small shapes (the norm also at MLA's shapes), then bf16 at the shapes the
+    training and serve runs give them, timed; fused_adam also as one
+    multi-tensor call over whole trees."""
     worst = {"rmsnorm": 0.0, "fused_adam": 0.0}
     bwd = {"dx": 0.0, "dscale_rel": 0.0}
-    for i, shape in enumerate(NORM_SHAPES):
+    for i, shape in enumerate(NORM_SHAPES + mla_norm_shapes(mla)):
         worst["rmsnorm"] = max(worst["rmsnorm"],
                                check_rmsnorm(shape, torch.float32, 2e-5, seed=i))
         bwd = {k: max(v, e) for (k, v), e in zip(
@@ -1204,9 +1242,12 @@ def phase_kernels_more(gemma, mamba) -> dict:
 
     rows = TRAIN_BATCH * SEQ
     norms = {}
-    for d in norm_widths(gemma, mamba):
+    for d in (gemma.d_model, mamba.d_model, mamba.d_inner):
         norms[d] = time_rmsnorm(rows, d)
         torch.cuda.empty_cache()
+    mla_norms = {f"rows={r} d={d}": time_rmsnorm(r, d, cold=r > SERVE_BATCH)
+                 for r, d in mla_norm_shapes(mla)}
+    torch.cuda.empty_cache()
     L = mamba.n_layers
     adam = {"mamba2 scan wz (bf16 p/g, fp32 m/v)": time_adam(
                 (L, mamba.d_model, mamba.d_inner), torch.bfloat16, torch.bfloat16,
@@ -1225,12 +1266,13 @@ def phase_kernels_more(gemma, mamba) -> dict:
     ssd = time_ssd(*ssd_shape)
     torch.cuda.empty_cache()
     emit("kernels_bf16_more", tol=2e-2, tol_row_rel=BF16_ROW_RTOL, tol_dscale_rel=DSCALE_RTOL,
-         rmsnorm={f"rows={rows} d={d}": v for d, v in norms.items()},
+         rmsnorm={**{f"rows={rows} d={d}": v for d, v in norms.items()}, **mla_norms},
          fused_adam=adam, fused_adam_tree={"model": mamba.name, **tree},
          ssd_chunk={"shape": dict(zip(("B", "nc", "Q", "H", "hp", "G", "N"), ssd_shape,
                                       strict=True)), **ssd})
     shape = f"bf16 rows={rows} d={mamba.d_model}"
-    others = lambda part: {f"d={d}": norms[d][part] for d in norms if d != mamba.d_model}
+    others = lambda part: {**{f"d={d}": norms[d][part] for d in norms if d != mamba.d_model},
+                           **{k: v[part] for k, v in mla_norms.items()}}
     return {"rmsnorm": {**norms[mamba.d_model]["forward"], "shape": shape,
                         "other_shapes": others("forward")},
             "rmsnorm_bwd": {**norms[mamba.d_model]["backward"], "shape": shape,
@@ -1253,13 +1295,42 @@ def phase_kernels_more(gemma, mamba) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def layer_norms(cfg, spec) -> int:
+    """The norms a layer runs through ``ops.rmsnorm`` (forward or decode):
+    ln1, ln2 when it has an MLP, a mamba mixer's gated norm, an MLA mixer's
+    q_ln and kv_ln."""
+    return 1 + int(cfg.mlp != "none") + int(spec.mixer == "mamba") + 2 * int(spec.mixer == "mla")
+
+
+def expected_forward_launches(cfg) -> dict:
+    """Kernel launches of one forward pass (no remat, no backward): per layer
+    its norms, one flash_fwd for an attention mixer at S % 128 == 0 (MLA
+    takes no flash kernel), one ssd_chunk for a mamba mixer; then the final
+    norm."""
+    out = dict.fromkeys(KERNELS, 0)
+    for spec in cfg.layer_specs():
+        out["rmsnorm"] += layer_norms(cfg, spec)
+        out["flash_fwd"] += int(spec.mixer in ("attn", "local"))
+        out["ssd_chunk"] += int(spec.mixer == "mamba")
+    out["rmsnorm"] += 1
+    return out
+
+
+def expected_decode_launches(cfg) -> dict:
+    """Kernel launches of one decode step: every layer's norms and the final
+    norm; the decode steps' attention and SSM recurrence are einsums."""
+    out = dict.fromkeys(KERNELS, 0)
+    out["rmsnorm"] = 1 + sum(layer_norms(cfg, spec) for spec in cfg.layer_specs())
+    return out
+
+
 def expected_launches(cfg, params=None) -> dict:
     """Kernel launches of one training step, derived from the model code.
     Each layer runs its forward once, and once more in the backward when its
     period is recomputed (``cfg.remat != "none"``: every scanned layer; the
     remainder layers are not recomputed).  A layer's forward launches one
-    rmsnorm for ln1, one for ln2 when it has an MLP and one for a mamba
-    mixer's gated norm, one flash_fwd for an attention mixer and one
+    rmsnorm for each of its norms (``layer_norms``), one flash_fwd for an
+    attention mixer and one
     ssd_chunk for a mamba mixer; its backward one rmsnorm_bwd for each of
     those norms (one call, two device kernels: the rows, then the
     fixed-order sum of dscale), one flash_dq and one flash_dkv for attention
@@ -1274,7 +1345,7 @@ def expected_launches(cfg, params=None) -> dict:
         runs = 2 if i < recomputed else 1
         attn = int(spec.mixer in ("attn", "local"))
         mamba = int(spec.mixer == "mamba")
-        norms = 1 + int(cfg.mlp != "none") + mamba
+        norms = layer_norms(cfg, spec)
         out["flash_fwd"] += runs * attn
         out["flash_dq"] += attn
         out["flash_dkv"] += attn
@@ -1295,22 +1366,26 @@ def reset_launches() -> None:
         ops.LAUNCHES[name] = 0
 
 
-def phase_train(cfg, phase: str, profile: bool) -> dict:
+def phase_train(cfg, phase: str, profile: bool, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                reduced=None) -> dict:
+    """``steps`` steps of ``Trainer.fit`` at ``batch`` × 4096 tokens: finite
+    losses and grad norms, launch counts, a checkpoint read back bit for bit;
+    ``reduced`` names what was cut from the configuration."""
     n_layers = cfg.n_layers
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         torch.cuda.reset_peak_memory_stats()
         tr = Trainer(cfg, get_shape("train_4k"), device=DEV, ckpt_dir=ckpt_dir,
-                     ckpt_every=TRAIN_STEPS)
+                     ckpt_every=steps)
         reset_launches()
-        logs = tr.fit(steps=TRAIN_STEPS, batch_override=TRAIN_BATCH)
+        logs = tr.fit(steps=steps, batch_override=batch)
         launches = dict(ops.LAUNCHES)
         tr.ckpt.close()
         peak = torch.cuda.max_memory_allocated()
 
         losses = [l["loss"] for l in logs]
         gnorms = [l["grad_norm"] for l in logs]
-        if len(logs) != TRAIN_STEPS or not all(math.isfinite(x) and x > 0 for x in losses):
+        if len(logs) != steps or not all(math.isfinite(x) and x > 0 for x in losses):
             raise AssertionError(f"bad losses: {losses}")
         if not all(math.isfinite(x) and x > 0 for x in gnorms):
             raise AssertionError(f"bad grad norms: {gnorms}")
@@ -1318,11 +1393,11 @@ def phase_train(cfg, phase: str, profile: bool) -> dict:
             raise AssertionError(f"first loss {losses[0]} >= ln(V) + 1")
         params, opt_state = tr._last_state
         per_step = expected_launches(cfg, params)
-        want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
+        want = {name: n * steps for name, n in per_step.items()}
         if launches != want:
             raise AssertionError(f"launch counts {launches}, expected {want}")
 
-        if latest_step(ckpt_dir) != TRAIN_STEPS:
+        if latest_step(ckpt_dir) != steps:
             raise AssertionError("no checkpoint was committed at the last step")
         tmpl = {"params": params, "opt": opt_state}
         loaded, manifest = load_checkpoint(ckpt_dir, tmpl, device="cpu")
@@ -1334,9 +1409,10 @@ def phase_train(cfg, phase: str, profile: bool) -> dict:
 
         times = [l["time_s"] for l in logs]
         steady = times[1:]
-        tok = TRAIN_BATCH * SEQ
-        res = {"arch": cfg.name, "layers": n_layers, "batch": TRAIN_BATCH, "seq": SEQ,
-               "params": cfg.param_count(), "steps": TRAIN_STEPS, "losses": losses,
+        tok = batch * SEQ
+        res = {"arch": cfg.name, "layers": n_layers, "batch": batch, "seq": SEQ,
+               **({"reduced": reduced} if reduced else {}),
+               "params": cfg.param_count(), "steps": steps, "losses": losses,
                "grad_norms": gnorms, "step_s": times,
                "step_s_median_after_first": float(np.median(steady)),
                "tokens_per_s": tok / float(np.median(steady)),
@@ -1346,7 +1422,7 @@ def phase_train(cfg, phase: str, profile: bool) -> dict:
         emit(phase, **res)
 
         if profile:
-            profile_step(tr, params, opt_state, phase, per_step)
+            profile_step(tr, params, opt_state, phase, per_step, batch, steps)
         return launches
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1372,7 +1448,37 @@ PLAIN_NORM_OPS = {"aten::rsqrt", "aten::mean", "aten::pow", "aten::square", "ate
                   "aten::mul", "aten::sub", "aten::add", "aten::div", "aten::neg"}
 
 
-def profile_step(tr, params, opt_state, phase: str, per_step: dict) -> None:
+#: device kernels by group, by name pattern
+GROUPS = {"flash_fwd": ("fa::flash_fwd",), "flash_dq": ("fa::flash_dq",),
+          "flash_dkv": ("fa::flash_dkv",), "ssd_chunk": ("ssd::ssd_chunk",),
+          "rmsnorm_bwd": ("rn::rmsnorm_bwd",), "rmsnorm": ("rn::rmsnorm",),
+          "fused_adam": ("adam::adam",),
+          "matmul": ("nvjet", "gemm", "cutlass", "gemv"),
+          "elementwise": ("elementwise",), "reduce": ("reduce",),
+          "memcpy_memset": ("Memcpy", "Memset")}
+
+
+def device_rows(prof) -> list[tuple[float, int, str]]:
+    """(ms, calls, name) of every device kernel in a profile, largest first:
+    kernel events only (the operator rows repeat their kernels' device
+    time).  Raises when there are none."""
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not rows:
+        raise AssertionError("the profiler recorded no device activity")
+    return sorted(rows, reverse=True)
+
+
+def by_group(rows) -> dict[str, float]:
+    out = dict.fromkeys([*GROUPS, "other"], 0.0)
+    for ms, _, key in rows:
+        group = next((g for g, pats in GROUPS.items() if any(p in key for p in pats)), "other")
+        out[group] += ms
+    return {g: round(ms, 2) for g, ms in out.items()}
+
+
+def profile_step(tr, params, opt_state, phase: str, per_step: dict, batch: int,
+                 step: int) -> None:
     """One more training step under torch.profiler: device time by kernel.
     Checks that the norm's backward went through its kernel: two device
     kernels a call (``per_step["rmsnorm_bwd"]`` calls), and no operator of
@@ -1380,31 +1486,15 @@ def profile_step(tr, params, opt_state, phase: str, per_step: dict) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import make_batch
-    batch = make_batch(tr.cfg, tr.shape, TRAIN_STEPS, tr.seed, TRAIN_BATCH, device=DEV)
+    data = make_batch(tr.cfg, tr.shape, step, tr.seed, batch, device=DEV)
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tr.step_fn(params, opt_state, batch, TRAIN_STEPS)
+        tr.step_fn(params, opt_state, data, step)
         torch.cuda.synchronize()
     wall = time.time() - t0
-    # kernel events only: the operator rows repeat their kernels' device time
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not rows:
-        raise AssertionError("the profiler recorded no device activity")
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     total = sum(r[0] for r in rows)
-    groups = {"flash_fwd": ("fa::flash_fwd",), "flash_dq": ("fa::flash_dq",),
-              "flash_dkv": ("fa::flash_dkv",), "ssd_chunk": ("ssd::ssd_chunk",),
-              "rmsnorm_bwd": ("rn::rmsnorm_bwd",), "rmsnorm": ("rn::rmsnorm",),
-              "fused_adam": ("adam::adam",),
-              "matmul": ("nvjet", "gemm", "cutlass"),
-              "elementwise": ("elementwise",), "reduce": ("reduce",),
-              "memcpy_memset": ("Memcpy", "Memset")}
-    by_group = dict.fromkeys([*groups, "other"], 0.0)
-    for ms, _, key in rows:
-        group = next((g for g, pats in groups.items() if any(p in key for p in pats)), "other")
-        by_group[group] += ms
     bwd_kernels = sum(n for _, n, key in rows if "rn::rmsnorm_bwd" in key)
     nodes, below = norm_backward_ops(prof)
     plain = sorted(PLAIN_NORM_OPS & set(below))
@@ -1414,10 +1504,243 @@ def profile_step(tr, params, opt_state, phase: str, per_step: dict) -> None:
             f"RMSNormBackward nodes (expected {2 * per_step['rmsnorm_bwd']} and "
             f"{per_step['rmsnorm_bwd']}); operators of the plain backward beneath them: {plain}")
     emit("profile", of=phase, step_wall_ms=wall * 1e3, device_busy_ms=total,
-         by_group_ms={g: round(ms, 2) for g, ms in by_group.items()},
+         by_group_ms=by_group(rows),
          norm_backward={"nodes": nodes, "device_kernels": bwd_kernels, "operators_below": below},
          top=[{"ms": round(ms, 3), "calls": n, "kernel": key[:90]}
               for ms, n, key in rows[:16]])
+
+
+# ---------------------------------------------------------------------------
+# serve
+# ---------------------------------------------------------------------------
+
+
+#: decode == forward at full width, bf16: each row's largest |decode − forward|
+#: over the row's largest |forward logit|, per model.  The two paths round
+#: differently (mamba2's decode keeps its state, convolution and x in fp32 where
+#: the chunked forward rounds them to bf16; MLA's decode absorbs W_un), and the
+#: difference grows with depth.  Set before the first run on the card (PERF.md);
+#: each model's planted fault must read above its tolerance
+SERVE_ROW_TOL = {"gemma3-1b": 0.1, "mamba2-1.3b": 0.75, "minicpm3-4b": 0.2}
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """``module.name`` is ``fn`` inside the block (a planted fault, a probe)."""
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def serve_calls(cfg, params, toks, steps, on_logits, feed_from=None, cache=None, start=0):
+    """``steps`` calls of ``make_serve_step(cfg)`` (greedy), position
+    ``start + t`` taking ``toks[:, start + t]``; from ``feed_from`` on, each
+    call's token is written to the next position of ``toks`` and fed back.
+    ``on_logits(pos, logits (B, V))`` sees every call's logits (the step's
+    ``decode_step`` is wrapped for it).  A fresh cache of ``SERVE_MAX_SEQ``
+    unless one is given.  Returns (greedy tokens (B, steps), seconds a call by
+    the host clock, each call ending in a synchronise, the cache)."""
+    decode = transformer.decode_step
+
+    def recording(params, cache, cfg, inputs, pos):
+        logits, cache = decode(params, cache, cfg, inputs, pos)
+        on_logits(pos, logits[:, -1])
+        return logits, cache
+
+    with patched(transformer, "decode_step", recording):
+        serve = make_serve_step(cfg)
+    B = toks.shape[0]
+    cache = init_cache(cfg, B, SERVE_MAX_SEQ, DEV) if cache is None else cache
+    out = torch.empty((B, steps), dtype=torch.int32, device=DEV)
+    secs = []
+    for t in range(start, start + steps):
+        t0 = time.perf_counter()
+        nxt, cache = serve(params, cache, toks[:, t:t + 1], t)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        out[:, t - start] = nxt
+        if feed_from is not None and feed_from <= t + 1 < toks.shape[1]:
+            toks[:, t + 1] = nxt
+    return out, secs, cache
+
+
+def row_rel(got, want):
+    """Per row (the last dim): the largest |got − want| over the row's
+    largest |want|."""
+    got, want = got.float(), want.float()
+    return (got - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)
+
+
+def ring_at_pos(p, x, k_cache, v_cache, pos, cfg, window=None):
+    """Planted fault: a ``local`` layer's slot written at ``pos``, clamped
+    onto the last slot (as the reference's ``dynamic_update_slice`` would),
+    instead of ``pos % T``.  Once the ring is full every slot is attended and
+    their order does not matter, so the real step runs with slot ``pos % T``
+    and the last slot swapped around it."""
+    T = k_cache.shape[1]
+    if window is None or pos < T:
+        return attention.attn_decode_step(p, x, k_cache, v_cache, pos, cfg, window)
+    slots = [pos % T, T - 1]
+    for c in (k_cache, v_cache):
+        c[:, slots] = c[:, slots[::-1]]
+    out = attention.attn_decode_step(p, x, k_cache, v_cache, pos, cfg, window)
+    for c in (k_cache, v_cache):
+        c[:, slots] = c[:, slots[::-1]]
+    return out
+
+
+def ssm_without_decay(p, x, conv_cache, state, cfg):
+    """Planted fault: ``ssd_decode_step`` with the state carried over
+    without its decay ``exp(dt·A)`` (``A = −exp(A_log)`` set to −0, which
+    nothing else in the step reads)."""
+    return ssm.ssd_decode_step({**p, "A_log": torch.full_like(p["A_log"], -math.inf)}, x,
+                               conv_cache, state, cfg)
+
+
+def mla_heads_latent_swapped(p, x, ckv_cache, kr_cache, pos, cfg):
+    """Planted fault: ``mla_decode_step`` absorbing ``wun`` read as (H, r,
+    nope) instead of (r, H, nope)."""
+    m, H = cfg.mla, cfg.n_heads
+    wun = p["wun"].reshape(H, m.kv_lora_rank, m.qk_nope_dim).transpose(0, 1)
+    return attention.mla_decode_step({**p, "wun": wun.reshape(p["wun"].shape)}, x, ckv_cache,
+                                     kr_cache, pos, cfg)
+
+
+#: per mixer: the step function a planted fault replaces, the fault, and the
+#: positions its run decodes (the ring only shows once it wraps, at 512)
+SERVE_FAULTS = {"local": ("attn_decode_step", ring_at_pos, SERVE_PROMPT + 64),
+                "mamba": ("ssd_decode_step", ssm_without_decay, 64),
+                "mla": ("mla_decode_step", mla_heads_latent_swapped, 64)}
+
+
+def profile_decode(cfg, params, cache, toks, start, calls=8) -> dict:
+    """``calls`` more greedy calls from position ``start`` under
+    torch.profiler: device busy time by group, and against the host clock of
+    these calls (``idle_share_profiled``: the profiler slows the host); the
+    norm's device kernels counted against the calls' launches
+    (``complete``: whether the profiler kept them all)."""
+    from torch.profiler import ProfilerActivity, profile
+    serve = make_serve_step(cfg)
+    inp = toks[:, start:start + 1]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(start, start + calls):
+            inp, cache = serve(params, cache, inp, t)
+            inp = inp[:, None]
+        torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    norms = sum(n for _, n, key in rows if "rn::rmsnorm_kernel<" in key)
+    want = calls * expected_decode_launches(cfg)["rmsnorm"]
+    return {"calls": calls, "positions": [start, start + calls - 1], "wall_ms": wall,
+            "device_busy_ms": busy, "idle_share_profiled": 1.0 - busy / wall,
+            "rmsnorm_device_kernels": norms, "rmsnorm_expected": want,
+            "complete": norms == want, "by_group_ms": by_group(rows),
+            "top": [{"ms": round(ms, 3), "calls": n, "kernel": key[:90]}
+                    for ms, n, key in rows[:8]]}
+
+
+def serve_model(cfg, profile: bool) -> dict:
+    """Greedy serving at full width and depth: 8 sequences, the prompt fed a
+    token a call, then the greedy tokens; launches, timing, peak memory; then
+    decode == forward a row at a time against one teacher-forced forward pass
+    over the same 768 tokens, and the planted fault of the model's mixer."""
+    params = init_params(cfg, 0, DEV)
+    B, steps = SERVE_BATCH, SERVE_PROMPT + SERVE_NEW
+    toks = torch.zeros((B, steps), dtype=torch.int32, device=DEV)
+    toks[:, :SERVE_PROMPT] = torch.from_numpy(make_tokens(cfg, B, SERVE_PROMPT, 0, 0))
+    dt = getattr(torch, cfg.compute_dtype)
+    dec = torch.empty((B, steps, cfg.vocab), dtype=dt, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    greedy, secs, cache = serve_calls(cfg, params, toks, steps,
+                                      lambda t, lg: dec[:, t].copy_(lg),
+                                      feed_from=SERVE_PROMPT)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = expected_decode_launches(cfg)
+    want = {k: n * steps for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"serve {cfg.name}: launches {launches}, expected {want}")
+    if not torch.isfinite(dec).all():
+        raise AssertionError(f"serve {cfg.name}: non-finite decode logits")
+    med = float(np.median(secs[SERVE_WARMUP:]))
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "prompt": SERVE_PROMPT,
+           "generated": SERVE_NEW, "max_seq": SERVE_MAX_SEQ, "calls": steps,
+           "params": cfg.param_count(), "launches": launches,
+           "rmsnorm_launches_per_call": per_step["rmsnorm"],
+           "ms_per_call_median": med * 1e3,
+           "ms_per_call_prompt_median": float(np.median(secs[SERVE_WARMUP:SERVE_PROMPT])) * 1e3,
+           "ms_per_call_generate_median": float(np.median(secs[SERVE_PROMPT:])) * 1e3,
+           "ms_per_call_first": secs[0] * 1e3,
+           "tokens_per_s": B / med, "peak_memory_bytes": peak,
+           "logit_record_bytes": dec.numel() * dec.element_size(),
+           "peak_without_record_bytes": peak - dec.numel() * dec.element_size()}
+    if profile:
+        prof = profile_decode(cfg, params, cache, torch.cat([toks, greedy[:, -1:]], dim=1), steps)
+        # the device's idle share of an unprofiled call: its busy time a call
+        # (profiled) against the median call's host time (not profiled)
+        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["calls"] / (med * 1e3)
+        res["profile"] = prof
+    del cache
+
+    # decode == the teacher-forced forward over the same tokens, a row at a
+    # time (logits at position t from the tokens up to t)
+    reset_launches()
+    with torch.inference_mode():
+        fwd, _ = logits_fn(params, cfg, toks)
+    fwd_launches = dict(ops.LAUNCHES)
+    if fwd_launches != expected_forward_launches(cfg):
+        raise AssertionError(f"serve {cfg.name} forward: launches {fwd_launches}, expected "
+                             f"{expected_forward_launches(cfg)}")
+    err = torch.cat([row_rel(dec[:, t:t + 64], fwd[:, t:t + 64]) for t in range(0, steps, 64)],
+                    dim=1)                                              # (B, steps)
+    agree = float((dec.argmax(dim=-1) == fwd.argmax(dim=-1)).float().mean())
+    tol = SERVE_ROW_TOL[cfg.name]
+    res.update(forward_launches=fwd_launches, tol_row_rel=tol,
+               decode_vs_forward={"max_row_rel": float(err.max()),
+                                  "median_row_rel": float(err.median()),
+                                  "max_row_rel_after_prompt": float(err[:, SERVE_PROMPT:].max())},
+               greedy_agrees_with_forward_argmax=agree,
+               greedy_is_decode_argmax=bool(torch.equal(
+                   greedy, dec.argmax(dim=-1).to(torch.int32))))
+    del dec
+    if float(err.max()) > tol or not res["greedy_is_decode_argmax"]:
+        raise AssertionError(f"serve {cfg.name}: decode != forward: {res['decode_vs_forward']} "
+                             f"(tolerance {tol}); greedy is the argmax: "
+                             f"{res['greedy_is_decode_argmax']}")
+
+    # the planted fault of this model's mixer, teacher-forced over the same
+    # tokens: it must read above the tolerance
+    mixer = next(s.mixer for s in cfg.layer_specs() if s.mixer in SERVE_FAULTS)
+    name, fault, n = SERVE_FAULTS[mixer]
+    errs = []
+    with patched(transformer, name, fault):
+        serve_calls(cfg, params, toks, n, lambda t, lg: errs.append(row_rel(lg, fwd[:, t])))
+    read = float(torch.stack(errs).max())
+    res["planted_fault"] = {"fault": fault.__name__, "positions": n, "max_row_rel": read}
+    if read <= tol:
+        raise AssertionError(f"serve {cfg.name}: the decode == forward check cannot see the "
+                             f"planted fault {fault.__name__}: {read} <= {tol}")
+    del fwd, params
+    return res
+
+
+def phase_serve(cfgs, profile: bool) -> dict:
+    """``serve_model`` on each configuration; returns each one's launches."""
+    out = {}
+    for cfg in cfgs:
+        res = serve_model(cfg, profile)
+        emit("serve", **res)
+        out[f"serve_{cfg.name}"] = res["launches"]
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1462,40 +1785,106 @@ def phase_parity() -> None:
                    compute_dtype="float32"), "parity", 128)
 
 
-def phase_parity_ssm() -> None:
-    """A small mamba2 inside the kernels' contract: head dim 16, state 16,
-    chunk 64 (two chunks of S = 128), d_model 64, d_inner 128."""
+def small_ssm():
+    """A small fp32 mamba2 inside the kernels' contract: head dim 16, state
+    16, chunk 64 (two chunks of S = 128), d_model 64, d_inner 128."""
     base = smoke_config("mamba2-1.3b")
-    cfg = replace(base, param_dtype="float32", compute_dtype="float32",
-                  ssm=replace(base.ssm, headdim=16, chunk=64))
-    parity(cfg, "parity_ssm", 128)
+    return replace(base, param_dtype="float32", compute_dtype="float32",
+                   ssm=replace(base.ssm, headdim=16, chunk=64))
+
+
+def phase_parity_ssm() -> None:
+    parity(small_ssm(), "parity_ssm", 128)
+
+
+#: parity_serve, fp32 on the card: decode on the kernel path vs the plain
+#: path and vs the forward (two fp32 summation orders and rsqrtf, 128
+#: positions through at most six layers)
+SERVE_PARITY_TOL = 5e-5
+
+
+def decode_logits(cfg, params, toks) -> tuple[torch.Tensor, dict]:
+    """The logits (B, S, V) of greedy serve calls over every position of
+    ``toks`` (B, S), teacher-forced, and the launches they made."""
+    reset_launches()
+    out = []
+    serve_calls(cfg, params, toks, toks.shape[1], lambda t, lg: out.append(lg))
+    return torch.stack(out, dim=1), dict(ops.LAUNCHES)
+
+
+def phase_parity_serve() -> None:
+    """Small fp32 models on the card: gemma3 (window 8: the ring wraps 15
+    times), mamba2, minicpm3, their norm scales (zero at init) drawn at
+    scale 0.2 so that the norms' scales take part.  Decode on the kernel path
+    (``use_flash``: the rmsnorm kernel; launches derived) == decode on the
+    plain path (no launches) == the teacher-forced forward on the kernel path
+    (flash, ssd_chunk, rmsnorm kernels), at S = 128, within
+    ``SERVE_PARITY_TOL``; then minicpm3's kernel path == plain path for loss
+    and gradients."""
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    cfgs = [replace(smoke_config("gemma3-1b"), window=8, **fp32), small_ssm(),
+            replace(smoke_config("minicpm3-4b"), **fp32)]
+    S, out = 128, {}
+    for cfg in cfgs:
+        rng_t = generator(50)
+        params = tree_map(lambda t: t.float() + (0.2 * torch.randn(
+            t.shape, generator=rng_t, device=DEV) if t.dtype == torch.float32
+            and not t.any() else 0.0), init_params(cfg, 0, DEV))
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S)).astype(np.int32)).to(DEV)
+        kcfg, pcfg = replace(cfg, use_flash=True), replace(cfg, use_flash=False)
+        kernel, k_launches = decode_logits(kcfg, params, toks)
+        plain, p_launches = decode_logits(pcfg, params, toks)
+        reset_launches()
+        with torch.inference_mode():
+            fwd, _ = logits_fn(params, kcfg, toks)
+        f_launches = dict(ops.LAUNCHES)
+        want = {k: n * S for k, n in expected_decode_launches(cfg).items()}
+        res = {"decode_kernel_vs_plain": max_err(kernel, plain),
+               "decode_vs_forward": max_err(kernel, fwd),
+               "launches_decode_kernel_path": k_launches,
+               "launches_forward": f_launches}
+        if (k_launches != want or any(p_launches.values())
+                or f_launches != expected_forward_launches(cfg)):
+            raise AssertionError(f"parity_serve {cfg.name}: launches {k_launches} (expected "
+                                 f"{want}), plain path {p_launches}, forward {f_launches} "
+                                 f"(expected {expected_forward_launches(cfg)})")
+        if max(res["decode_kernel_vs_plain"], res["decode_vs_forward"]) > SERVE_PARITY_TOL:
+            raise AssertionError(f"parity_serve {cfg.name}: {res} (tolerance "
+                                 f"{SERVE_PARITY_TOL})")
+        out[cfg.name] = res
+    emit("parity_serve", seq=S, tol=SERVE_PARITY_TOL, models=out)
+    parity(cfgs[2], "parity_mla", S)
 
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("env", "build", "kernels", "train", "train_ssm", "parity", "parity_ssm")
+PHASES = ("env", "build", "kernels", "train", "train_ssm", "train_mla", "serve", "parity",
+          "parity_ssm", "parity_serve")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="after each train phase, profile one more step")
+                    help="after each train phase, profile one more step; after each "
+                         "model's serve run, eight more decode calls")
     args = ap.parse_args()
     phases = args.phases.split(",")
     t0 = time.time()
 
     gemma = replace(get_config("gemma3-1b"), use_flash=True)
     mamba = replace(get_config("mamba2-1.3b"), use_flash=True)
+    mla = replace(get_config("minicpm3-4b"), use_flash=True)
     if "env" in phases:
         phase_env()
     if "build" in phases:
-        phase_build(norm_widths(gemma, mamba))
+        phase_build(norm_widths(gemma, mamba, mla))
     timed = None
     if "kernels" in phases:
         timed = phase_kernels_flash(gemma)
         torch.cuda.empty_cache()
-        timed["more"] = phase_kernels_more(gemma, mamba)
+        timed["more"] = phase_kernels_more(gemma, mamba, mla)
         torch.cuda.empty_cache()
     launches = {}
     if "train" in phases:
@@ -1504,13 +1893,24 @@ def main() -> None:
     if "train_ssm" in phases:
         launches["train_ssm"] = phase_train(mamba, "train_ssm", args.profile)
         torch.cuda.empty_cache()
+    if "train_mla" in phases:
+        launches["train_mla"] = phase_train(
+            replace(mla, n_layers=MLA_LAYERS), "train_mla", args.profile, batch=MLA_BATCH,
+            steps=MLA_STEPS, reduced=f"n_layers 62 -> {MLA_LAYERS} (weights and AdamW state of "
+                                     "62 layers, ≈ 51 GB, leave too little for activations); "
+                                     f"batch {MLA_BATCH}")
+        torch.cuda.empty_cache()
+    if "serve" in phases:
+        launches.update(phase_serve((gemma, mamba, mla), args.profile))
     if "parity" in phases:
         phase_parity()
     if "parity_ssm" in phases:
         phase_parity_ssm()
+    if "parity_serve" in phases:
+        phase_parity_serve()
 
     emit("done", phases=phases, seconds=round(time.time() - t0, 1))
-    if timed is not None and set(launches) == {"train", "train_ssm"}:
+    if timed is not None and {"train", "train_ssm"} <= set(launches):
         line = []
         for name, meta in KERNELS.items():
             by_path = {path: counts[name] for path, counts in launches.items()}
@@ -1519,6 +1919,10 @@ def main() -> None:
             own = "train" if name in FLASH else "train_ssm"
             entry = {"name": name, **meta, "launches": by_path[own],
                      "launches_by_path": by_path}
+            if name == "rmsnorm":
+                steps = SERVE_PROMPT + SERVE_NEW
+                entry["launches_per_decode_call"] = {
+                    path: n // steps for path, n in by_path.items() if path.startswith("serve_")}
             if name in FLASH:
                 g, w = timed["global"][name], timed["window"][name]
                 entry.update({"max_abs_err": max(g["max_abs_err"], w["max_abs_err"]),

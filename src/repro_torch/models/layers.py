@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device, torch_dtype
+from ..kernels import ops
 
 
 @dataclass(frozen=True)
@@ -79,6 +80,15 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * (1.0 + scale.to(dt))
+
+
+def norm(x, scale, cfg):
+    """The model's RMSNorm: the hand-written kernel (``kernels.ops.rmsnorm``:
+    fp32 product, one cast) with ``cfg.use_flash``, else ``rmsnorm`` (the
+    reference model's rounding order)."""
+    if cfg.use_flash:
+        return ops.rmsnorm(x, scale, cfg.norm_eps)
+    return rmsnorm(x, scale, cfg.norm_eps)
 
 
 def rmsnorm_spec(d: int) -> dict:

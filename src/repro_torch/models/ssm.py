@@ -11,7 +11,11 @@ With ``cfg.use_flash`` the within-chunk part is the hand-written kernel
 (``exp(where(i >= j, cum_i − cum_j, −inf))``): the reference exponentiates
 first and masks after, which overflows for i < j once a chunk decays by more
 than ~88 and makes its gradients NaN at chunk 128 and up.  The forward values
-are the same.  The one-token decode step waits for the decode slice.
+are the same.
+
+Decode is the O(1) recurrent step (``ssd_decode_step``): an fp32 ring of the
+last ``conv_width − 1`` inputs of the causal convolution and the fp32 SSM
+state are the cache, both updated in place.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .layers import PSpec, rmsnorm
+from .layers import PSpec, norm
 
 
 def ssm_specs(cfg) -> dict:
@@ -124,9 +128,39 @@ def ssd_apply(p: dict, x, cfg):
     y = y + xh * p["D"][..., None].to(xh.dtype)
     y = y.reshape(B_, S, di)
 
-    gated = y * F.silu(z.float()).to(y.dtype)
-    if cfg.use_flash:
-        y = ops.rmsnorm(gated, p["norm"], cfg.norm_eps)
-    else:
-        y = rmsnorm(gated, p["norm"], cfg.norm_eps)
+    y = norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg)
     return y @ p["wo"]
+
+
+def ssd_decode_step(p: dict, x, conv_cache, state, cfg):
+    """One-token recurrent step.  x: (B,1,D); conv_cache: (B,cw-1,di+2GN)
+    fp32 and state: (B,nh,hp,N) fp32, both written in place.  Returns
+    (y, conv_cache, state)."""
+    s = cfg.ssm
+    B_ = x.shape[0]
+    di, nh, hp, N, G = (cfg.d_inner, cfg.ssm_heads, s.headdim, s.d_state,
+                        s.n_groups)
+    z = x @ p["wz"]                                               # (B,1,di)
+    u = torch.cat([x @ p["wx"], x @ p["wbc"]], dim=-1).float()    # (B,1,ch)
+    win = torch.cat([conv_cache, u], dim=1)                       # (B,cw,ch)
+    w = torch.cat([p["conv_x"], p["conv_bc"]], dim=1)             # (cw,ch)
+    conv_out = F.silu(torch.einsum("bcf,cf->bf", win, w))
+    conv_cache.copy_(win[:, 1:])
+
+    xin_c, bc_c = conv_out[:, :di], conv_out[:, di:]
+    Bm, Cm = bc_c.reshape(B_, 2 * G, N).split(G, dim=1)           # (B,G,N)
+    rep = nh // G
+    Bh = Bm.repeat_interleave(rep, dim=1)                         # (B,nh,N)
+    Ch = Cm.repeat_interleave(rep, dim=1)
+    dt = F.softplus((x[:, 0] @ p["wdt"]).float() + p["dt_bias"])  # (B,nh)
+    A = -torch.exp(p["A_log"])
+    xh = xin_c.reshape(B_, nh, hp).float()
+
+    decay = torch.exp(dt * A)                                     # (B,nh)
+    state.copy_(state * decay[..., None, None]
+                + torch.einsum("bh,bhp,bhn->bhpn", dt, xh, Bh.float()))
+    y = torch.einsum("bhn,bhpn->bhp", Ch.float(), state)
+    y = y + xh * p["D"][:, None]
+    y = y.reshape(B_, 1, di).to(x.dtype)
+    y = norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg)
+    return y @ p["wo"], conv_cache, state

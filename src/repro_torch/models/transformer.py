@@ -1,10 +1,12 @@
 """The composable decoder-only model, assembled from a ModelConfig.
 
-Mixers ``attn``, ``local`` (GQA attention) and ``mamba`` (Mamba-2 SSD), with
-an MLP or none; ``mla`` and MoE layers wait for their slices.  With
-``cfg.use_flash`` every RMSNorm (``ln1``, ``ln2``, ``final_norm``) is the
-hand-written kernel (``kernels.ops.rmsnorm``: fp32 product, one cast);
-without it, ``layers.rmsnorm`` (the reference model's rounding order).
+Mixers ``attn``, ``local`` (GQA attention), ``mla`` (multi-head latent
+attention) and ``mamba`` (Mamba-2 SSD), with an MLP or none; MoE layers wait
+for their slice.  With ``cfg.use_flash`` every RMSNorm (``ln1``, ``ln2``,
+``final_norm`` and the mixers' own) is the hand-written kernel
+(``kernels.ops.rmsnorm``: fp32 product, one cast); without it,
+``layers.rmsnorm`` (the reference model's rounding order).  Decode takes the
+same norms as the forward, so decode ≡ forward holds within the port.
 
 The layer stack follows the reference's parameter layout — the smallest
 repeating block pattern (``cfg.scan_period()``) with parameters stacked along
@@ -15,21 +17,25 @@ Activation checkpointing: ``cfg.remat == "none"`` keeps everything; any other
 policy recomputes the whole period body in the backward pass
 (``torch.utils.checkpoint``).  That is numerically identical to the
 reference's selective policies, which only choose what to keep.
+
+Decode: ``cache_specs`` / ``init_cache`` lay the caches out like the
+parameters (``scan`` stacked, ``rem``); ``decode_step`` runs one token
+through every layer, writing each layer's cache in place.
 """
 
 from __future__ import annotations
+
+import operator
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device, torch_dtype
-from ..kernels import ops
-from .attention import attn_specs, gqa_attention
-from .layers import (PSpec, embed_lookup, materialize, mlp_apply, mlp_specs,
-                     rmsnorm, rmsnorm_spec, stack_specs)
-from .ssm import ssd_apply, ssm_specs
-
-_LATER = {"mla": "MLA"}
+from .attention import (attn_decode_step, attn_specs, gqa_attention,
+                        mla_attention, mla_decode_step, mla_specs)
+from .layers import (PSpec, embed_lookup, map_specs, materialize, mlp_apply,
+                     mlp_specs, norm, rmsnorm_spec, stack_specs)
+from .ssm import ssd_apply, ssd_decode_step, ssm_specs
 
 
 # ---------------------------------------------------------------------------
@@ -41,12 +47,10 @@ def block_specs(cfg, spec) -> dict:
     out = {"ln1": rmsnorm_spec(cfg.d_model)}
     if spec.mixer in ("attn", "local"):
         out["attn"] = attn_specs(cfg)
+    elif spec.mixer == "mla":
+        out["attn"] = mla_specs(cfg)
     elif spec.mixer == "mamba":
         out["mixer"] = ssm_specs(cfg)
-    elif spec.mixer in _LATER:
-        raise NotImplementedError(
-            f"mixer {spec.mixer!r} is not ported yet: it waits for the "
-            f"{_LATER[spec.mixer]} slice of the port")
     else:
         raise ValueError(f"unknown mixer {spec.mixer!r}")
     if spec.moe:
@@ -94,25 +98,19 @@ def init_params(cfg, seed: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def _norm(x, scale, cfg):
-    if cfg.use_flash:
-        return ops.rmsnorm(x, scale, cfg.norm_eps)
-    return rmsnorm(x, scale, cfg.norm_eps)
-
-
 def _apply_layer(prm, x, cfg, spec, positions):
-    h = _norm(x, prm["ln1"]["scale"], cfg)
+    h = norm(x, prm["ln1"]["scale"], cfg)
     if spec.mixer == "attn":
         mix = gqa_attention(prm["attn"], h, cfg, positions, window=None)
     elif spec.mixer == "local":
         mix = gqa_attention(prm["attn"], h, cfg, positions, window=cfg.window)
-    elif spec.mixer == "mamba":
-        mix = ssd_apply(prm["mixer"], h, cfg)
+    elif spec.mixer == "mla":
+        mix = mla_attention(prm["attn"], h, cfg, positions)
     else:
-        raise NotImplementedError(f"mixer {spec.mixer!r} waits for a later slice")
+        mix = ssd_apply(prm["mixer"], h, cfg)
     x = x + mix
     if cfg.mlp != "none":
-        h2 = _norm(x, prm["ln2"]["scale"], cfg)
+        h2 = norm(x, prm["ln2"]["scale"], cfg)
         x = x + mlp_apply(prm["mlp"], h2, cfg)
     return x
 
@@ -126,6 +124,14 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
+def _embed(params, cfg, inputs):
+    if cfg.input_mode == "tokens":
+        x = embed_lookup(params["embed"]["table"], inputs)
+        # the scale is rounded to the activation dtype first
+        return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    return inputs.to(torch_dtype(cfg.compute_dtype))
+
+
 def forward_hidden(params, cfg, inputs, positions=None):
     """inputs: tokens (B,S) int32, or embeddings (B,S,D) for stub-frontend
     archs.  Returns (hidden (B,S,D), aux_loss).  ``aux_loss`` is the MoE
@@ -134,12 +140,7 @@ def forward_hidden(params, cfg, inputs, positions=None):
     period = cfg.scan_period()
     n_full = cfg.n_layers // period
 
-    if cfg.input_mode == "tokens":
-        x = embed_lookup(params["embed"]["table"], inputs)
-        # the scale is rounded to the activation dtype first
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
-    else:
-        x = inputs.to(torch_dtype(cfg.compute_dtype))
+    x = _embed(params, cfg, inputs)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
@@ -160,7 +161,7 @@ def forward_hidden(params, cfg, inputs, positions=None):
     for j, prm in sorted(params.get("rem", {}).items(), key=lambda kv: int(kv[0])):
         x = _apply_layer(prm, x, cfg, specs[n_full * period + int(j)], positions)
 
-    x = _norm(x, params["final_norm"]["scale"], cfg)
+    x = norm(x, params["final_norm"]["scale"], cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
 
@@ -174,3 +175,106 @@ def unembed_weight(params, cfg):
 def logits_fn(params, cfg, inputs):
     h, aux = forward_hidden(params, cfg, inputs)
     return h @ unembed_weight(params, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# KV / SSM caches + decode
+# ---------------------------------------------------------------------------
+
+
+def _cache_entry_specs(cfg, spec, batch: int, max_seq: int) -> dict:
+    hd, Kv = cfg.head_dim_, cfg.n_kv_heads
+    if spec.mixer in ("attn", "local"):
+        # a local layer keeps a ring of min(window, max_seq) slots
+        T = max_seq if spec.mixer == "attn" else min(cfg.window, max_seq)
+        shp, axes = (batch, T, Kv, hd), ("batch", "kv_seq", "kv_heads", None)
+        return {"k": PSpec(shp, axes, cfg.compute_dtype, "zeros"),
+                "v": PSpec(shp, axes, cfg.compute_dtype, "zeros")}
+    if spec.mixer == "mla":
+        m = cfg.mla
+        axes = ("batch", "kv_seq", None)
+        return {"ckv": PSpec((batch, max_seq, m.kv_lora_rank), axes,
+                             cfg.compute_dtype, "zeros"),
+                "kr": PSpec((batch, max_seq, m.qk_rope_dim), axes,
+                            cfg.compute_dtype, "zeros")}
+    if spec.mixer == "mamba":
+        s = cfg.ssm
+        ch = cfg.d_inner + 2 * s.n_groups * s.d_state
+        return {"conv": PSpec((batch, s.conv_width - 1, ch),
+                              ("batch", None, None), "float32", "zeros"),
+                "state": PSpec((batch, cfg.ssm_heads, s.headdim, s.d_state),
+                               ("batch", "ffn", None, None), "float32", "zeros")}
+    raise ValueError(f"unknown mixer {spec.mixer!r}")
+
+
+def cache_specs(cfg, batch: int, max_seq: int) -> dict:
+    specs = cfg.layer_specs()
+    period = cfg.scan_period()
+    n_full = cfg.n_layers // period
+    rem = cfg.n_layers - n_full * period
+    return {
+        "scan": {str(i): stack_specs(
+            _cache_entry_specs(cfg, specs[i], batch, max_seq), n_full)
+            for i in range(period)},
+        "rem": {str(j): _cache_entry_specs(cfg, specs[n_full * period + j],
+                                           batch, max_seq)
+                for j in range(rem)},
+    }
+
+
+def init_cache(cfg, batch: int, max_seq: int, device="cuda"):
+    """Zeroed caches on ``device`` for ``batch`` sequences of up to
+    ``max_seq`` tokens."""
+    dev = resolve_device(device)
+    return map_specs(lambda s: torch.zeros(s.shape, dtype=torch_dtype(s.dtype),
+                                           device=dev),
+                     cache_specs(cfg, batch, max_seq))
+
+
+def _decode_layer(prm, cache, x, pos, cfg, spec):
+    h = norm(x, prm["ln1"]["scale"], cfg)
+    if spec.mixer in ("attn", "local"):
+        window = cfg.window if spec.mixer == "local" else None
+        mix, _, _ = attn_decode_step(prm["attn"], h, cache["k"], cache["v"],
+                                     pos, cfg, window=window)
+    elif spec.mixer == "mla":
+        mix, _, _ = mla_decode_step(prm["attn"], h, cache["ckv"], cache["kr"],
+                                    pos, cfg)
+    else:
+        mix, _, _ = ssd_decode_step(prm["mixer"], h, cache["conv"],
+                                    cache["state"], cfg)
+    x = x + mix
+    if cfg.mlp != "none":
+        h2 = norm(x, prm["ln2"]["scale"], cfg)
+        x = x + mlp_apply(prm["mlp"], h2, cfg)
+    return x
+
+
+def _select(tree, i: int):
+    """Entry ``i`` of every stacked leaf: views, so writes reach the stack."""
+    if isinstance(tree, dict):
+        return {k: _select(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def decode_step(params, cache, cfg, inputs, pos: int):
+    """One-token decode.  inputs: (B,1) tokens or (B,1,D) embeddings; pos:
+    the cache's fill count, a Python ``int``.  Writes every layer's cache in
+    place and returns (logits (B,1,V), cache) — the same cache tree."""
+    pos = operator.index(pos)
+    specs = cfg.layer_specs()
+    period = cfg.scan_period()
+    n_full = cfg.n_layers // period
+
+    x = _embed(params, cfg, inputs)
+    for n in range(n_full):
+        per_params, per_cache = _select(params["scan"], n), _select(cache["scan"], n)
+        for i in range(period):
+            x = _decode_layer(per_params[str(i)], per_cache[str(i)], x, pos, cfg,
+                              specs[i])
+    for j, prm in sorted(params.get("rem", {}).items(), key=lambda kv: int(kv[0])):
+        x = _decode_layer(prm, cache["rem"][j], x, pos, cfg,
+                          specs[n_full * period + int(j)])
+
+    x = norm(x, params["final_norm"]["scale"], cfg)
+    return x @ unembed_weight(params, cfg), cache

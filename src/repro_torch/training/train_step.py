@@ -1,11 +1,13 @@
-"""train_step / eval_step factories with microbatched gradient accumulation.
+"""train_step / eval_step / serve_step factories; the train step with
+microbatched gradient accumulation.
 
 ``make_train_step`` returns
 ``(params, opt_state, batch, step) -> (params, opt_state, metrics)``.
 Gradients come from ``torch.autograd.grad`` over the leaves of the parameter
 tree; the optimizer then updates those leaves **in place**, so the returned
-trees hold the tensors that came in.  (``make_serve_step`` belongs to the
-decode slice.)
+trees hold the tensors that came in.  ``make_serve_step`` returns
+``(params, cache, inputs, pos, generator=None) -> (next_tokens, cache)``;
+the cache, too, is updated in place.
 """
 
 from __future__ import annotations
@@ -68,3 +70,29 @@ def make_eval_step(cfg):
         _, metrics = lm_loss(params, cfg, batch["inputs"], batch["labels"])
         return metrics
     return eval_step
+
+
+def make_serve_step(cfg, sample: str = "greedy", temperature: float = 1.0):
+    """Returns ``(params, cache, inputs, pos, generator=None) -> (next_tokens
+    int32 (B,), cache)``, run under ``torch.inference_mode()``.  inputs: (B,1)
+    tokens or (B,1,D) embeddings; pos: the cache's fill count, a Python
+    ``int``.  Greedy takes the first maximum of the logits (as
+    ``jnp.argmax``); otherwise a token is drawn from the categorical
+    distribution of ``logits / temperature`` with ``generator``, which the
+    caller must pass (no generator reproduces ``jax.random``'s draws)."""
+    from ..models.transformer import decode_step
+
+    @torch.inference_mode()
+    def serve_step(params, cache, inputs, pos, generator=None):
+        logits, cache = decode_step(params, cache, cfg, inputs, pos)
+        logits = logits[:, -1]
+        if sample == "greedy":
+            nxt = logits.argmax(dim=-1)
+        else:
+            if generator is None:
+                raise ValueError("categorical sampling needs a torch.Generator")
+            probs = torch.softmax((logits / temperature).float(), dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return nxt.to(torch.int32), cache
+
+    return serve_step
