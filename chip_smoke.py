@@ -11,8 +11,10 @@ Phases, each printing one JSON line (or a few):
   build       compiles the CUDA kernels from src/repro_torch/kernels/csrc
   kernels     each of the six kernels and the rmsnorm backward against its
               plain PyTorch version on the card: fp32 at small shapes, bf16
-              at the training shapes (the norm also at MLA's widths, at
-              train_mla's rows and at a decode step's 8); the flash and SSD
+              at the training shapes (flash at gemma3's global and window
+              layers and at olmoe's hd 128, H = Kv = 16; the norm also at
+              MLA's widths, at train_mla's rows and at a decode step's 8;
+              AdamW also on olmoe's expert stack); the flash and SSD
               kernels' small shapes
               also in bf16 (their tensor-core kernels), flash beside the
               library's own bf16 error, planted faults that the bf16 checks
@@ -32,17 +34,25 @@ Phases, each printing one JSON line (or a few):
               ssd_chunk, rmsnorm and fused_adam kernels
   train_mla   the same for minicpm3-4b (MLA) at full width and 4 layers,
               batch 2 x 4096, 4 steps
+  train_moe   the same for olmoe-1b-7b (Mixture-of-Experts) at full width and
+              8 of 16 layers, batch 4 x 4096, 6 steps; also the aux loss at
+              step 0
   serve       make_serve_step on full-width, full-depth gemma3-1b,
-              mamba2-1.3b and minicpm3-4b: 8 sequences, a 512-token prompt
-              fed token by token, then 256 greedy tokens (768 calls, cache of
-              1024); rmsnorm launches per call, decode == the teacher-forced
-              forward (flash, ssd_chunk and rmsnorm kernels) a row at a time,
-              and three planted faults that check must see
+              mamba2-1.3b, minicpm3-4b and olmoe-1b-7b: 8 sequences, a
+              512-token prompt fed token by token, then 256 greedy tokens (768
+              calls, cache of 1024); rmsnorm launches per call, decode == the
+              teacher-forced forward (flash, ssd_chunk and rmsnorm kernels; for
+              olmoe with capacity_factor E/K, so that the forward drops no
+              token) a row at a time, and four planted faults that check must
+              see
   parity      kernel path == plain path (loss and grads), small fp32 gemma3
   parity_ssm  the same for a small fp32 mamba2
   parity_serve  small fp32 gemma3 (window 8), mamba2 and minicpm3: decode on
               the kernel path == decode on the plain path == the forward;
               minicpm3's kernel path == plain path for loss and grads
+  parity_moe  small fp32 olmoe (capacity as configured: tokens are dropped):
+              kernel path == plain path for loss, aux and grads; decode on the
+              kernel path == decode on the plain path == the drop-free forward
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 non-zero and the last line is not printed.  There is no CPU fallback.
@@ -85,7 +95,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
 from repro_torch.launch.train import Trainer  # noqa: E402
-from repro_torch.models import attention, ssm, transformer  # noqa: E402
+from repro_torch.models import attention, moe, ssm, transformer  # noqa: E402
 from repro_torch.models.transformer import init_cache, init_params, logits_fn  # noqa: E402
 from repro_torch.training.loss import lm_loss  # noqa: E402
 from repro_torch.training.train_step import make_serve_step  # noqa: E402
@@ -100,6 +110,15 @@ SEQ = 4096
 #: train_mla: minicpm3-4b at full width, depth cut to 4 of 62 layers (62 need
 #: ≈ 12 B/param × 4.3 B ≈ 51 GB of weights and AdamW state before activations)
 MLA_LAYERS, MLA_BATCH, MLA_STEPS = 4, 2, 4
+#: train_moe: olmoe-1b-7b at full width, depth cut to 8 of 16 layers (16 need
+#: ≈ 12 B/param × 6.9 B ≈ 83 GB of weights, gradients and AdamW state)
+MOE_LAYERS, MOE_BATCH, MOE_STEPS = 8, 4, 6
+#: train_moe: the first MoE layer's aux loss at step 0 (router at its "small"
+#: init: gates near uniform, so E · Σ me·ce ≈ E · (1/E) · 1 = 1).  The logged
+#: aux loss sums the layers' terms (as the reference's), and deeper layers' terms
+#: grow at init as the random residual stream correlates the tokens' routing
+#: (1.0 → 1.7–2.4 over 8 layers in a CPU rehearsal at full width)
+MOE_AUX_RANGE = (0.9, 1.5)
 #: serve: sequences, prompt tokens, greedy tokens, cache slots, warm-up calls
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ, SERVE_WARMUP = 8, 512, 256, 1024, 16
 
@@ -174,12 +193,12 @@ def phase_env() -> None:
          device_count=torch.cuda.device_count(), nvidia_smi=smi())
 
 
-def norm_widths(gemma, mamba, mla) -> tuple[int, ...]:
+def norm_widths(gemma, mamba, mla, moe_cfg) -> tuple[int, ...]:
     """The widths the training and serve paths normalise through
     ``ops.rmsnorm``: the block norms, mamba's gated norm and MLA's ``q_ln``
     and ``kv_ln``."""
-    return (gemma.d_model, mamba.d_model, mamba.d_inner, mla.d_model, mla.mla.q_lora_rank,
-            mla.mla.kv_lora_rank)
+    return tuple(sorted({gemma.d_model, mamba.d_model, mamba.d_inner, mla.d_model,
+                         mla.mla.q_lora_rank, mla.mla.kv_lora_rank, moe_cfg.d_model}))
 
 
 def memory_bound_kernels(widths) -> dict[str, dict[str, int]]:
@@ -330,16 +349,16 @@ def check_case(case, dtype, tol_fwd, tol_grad, seed, library=False, faults=False
 def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dq_p, dk_p, dv_p) -> dict:
     """What the bf16 checks read on four faults a kernel could have, each
     built in fp32 from the plain formulas at ``case`` and rounded as the
-    kernel rounds its output: the forward dropping the last key tile (32
-    keys, the tensor-core kernel's tile at hd 256) of the last query tile of
-    batch 0; the forward not rescaling its output accumulator when the row
+    kernel rounds its output: the forward dropping the last key tile (the
+    tensor-core kernel's tile: 32 keys at hd 256, 64 below) of the last query
+    tile of batch 0; the forward not rescaling its output accumulator when the row
     max grows (the same rows); dq dropping the last key tile (64 keys, its
     tensor-core kernel's tile) of the same rows; dk/dv dropping the first
     query tile (64 rows) that sees the key block in the middle of batch 0, kv
     head 0.  Each must read above its tolerance, so that the check at this
     shape can fail a wrong kernel."""
     B, S, T, H, Kv, hd, causal, window = case
-    G, scale, bn = H // Kv, fa._scale(hd, None), 32
+    G, scale, bn = H // Kv, fa._scale(hd, None), 32 if hd >= 256 else 64
     mask = fa.attention_mask(S, T, causal, window, q.device)
     f32 = lambda t: t.float()
 
@@ -576,7 +595,7 @@ def check_dispatch() -> dict:
     return out
 
 
-def phase_kernels_flash(cfg) -> dict:
+def phase_kernels_flash(cfg, moe_cfg) -> dict:
     worst = dict.fromkeys(FLASH, 0.0)
     for i, case in enumerate(SMALL_CASES):
         for name, e in check_case(case, torch.float32, 2e-5, 5e-5, seed=i).items():
@@ -602,12 +621,13 @@ def phase_kernels_flash(cfg) -> dict:
          max_lse_abs_err=max(c["lse_abs"] for c in per_case), by_case=per_case)
     emit("kernels_dispatch", ran=check_dispatch())
 
-    # bf16 at the shapes the training run gives the kernels: a global layer
-    # (window None) and a sliding-window layer
-    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    # bf16 at the shapes the training runs give the kernels: gemma3's global
+    # layer (window None) and sliding-window layer, and olmoe's layer (hd 128,
+    # H = Kv = 16: no GQA group)
     out = {}
-    for tag, window in (("global", None), ("window", cfg.window)):
-        case = (TRAIN_BATCH, SEQ, SEQ, H, Kv, hd, True, window)
+    layers = (("global", cfg, None), ("window", cfg, cfg.window), ("olmoe", moe_cfg, None))
+    for tag, c, window in layers:
+        case = (TRAIN_BATCH, SEQ, SEQ, c.n_heads, c.n_kv_heads, c.head_dim_, True, window)
         errs = check_case(case, torch.bfloat16, 2e-2, 2e-2, seed=100, faults=True)
         torch.cuda.empty_cache()
         timed = time_case(case, torch.bfloat16, reps=5)
@@ -619,7 +639,7 @@ def phase_kernels_flash(cfg) -> dict:
         for name in FLASH:
             timed[name]["grid"] = tc_grid(name, case)
         out[tag] = timed
-        emit("kernels_bf16", layer=tag, shape=dict(zip(
+        emit("kernels_bf16", layer=tag, arch=c.name, shape=dict(zip(
             ("B", "S", "T", "H", "Kv", "hd", "causal", "window"), case, strict=True)),
             tol=2e-2, tol_row_rel=BF16_ROW_RTOL, tol_lse=BF16_LSE_ATOL, kernels=timed,
             planted_faults=errs["planted_faults"])
@@ -1206,7 +1226,7 @@ def check_rmsnorm_dispatch() -> dict:
     return {"launches": launched, "operators_below_the_node": below}
 
 
-def phase_kernels_more(gemma, mamba, mla) -> dict:
+def phase_kernels_more(gemma, mamba, mla, moe_cfg) -> dict:
     """rmsnorm (forward and backward), fused_adam and ssd_chunk: fp32 at
     small shapes (the norm also at MLA's shapes), then bf16 at the shapes the
     training and serve runs give them, timed; fused_adam also as one
@@ -1256,7 +1276,10 @@ def phase_kernels_more(gemma, mamba, mla) -> dict:
                 (gemma.vocab, gemma.d_model), torch.bfloat16, torch.bfloat16, torch.float32),
             "mamba2 scan wz, all fp32": time_adam(
                 (L, mamba.d_model, mamba.d_inner), torch.float32, torch.float32,
-                torch.float32)}
+                torch.float32),
+            "olmoe one layer's expert stack moe/wi (E, d, f) (bf16 p/g, fp32 m/v)": time_adam(
+                (moe_cfg.moe.n_experts, moe_cfg.d_model, moe_cfg.moe.d_ff_expert),
+                torch.bfloat16, torch.bfloat16, torch.float32)}
     torch.cuda.empty_cache()
     tree = time_adam_tree(mamba)
     torch.cuda.empty_cache()
@@ -1297,9 +1320,10 @@ def phase_kernels_more(gemma, mamba, mla) -> dict:
 
 def layer_norms(cfg, spec) -> int:
     """The norms a layer runs through ``ops.rmsnorm`` (forward or decode):
-    ln1, ln2 when it has an MLP, a mamba mixer's gated norm, an MLA mixer's
-    q_ln and kv_ln."""
-    return 1 + int(cfg.mlp != "none") + int(spec.mixer == "mamba") + 2 * int(spec.mixer == "mla")
+    ln1, ln2 when it has an MLP or a MoE layer, a mamba mixer's gated norm,
+    an MLA mixer's q_ln and kv_ln."""
+    return (1 + int(spec.moe or cfg.mlp != "none") + int(spec.mixer == "mamba")
+            + 2 * int(spec.mixer == "mla"))
 
 
 def expected_forward_launches(cfg) -> dict:
@@ -1370,6 +1394,9 @@ def phase_train(cfg, phase: str, profile: bool, batch=TRAIN_BATCH, steps=TRAIN_S
                 reduced=None) -> dict:
     """``steps`` steps of ``Trainer.fit`` at ``batch`` × 4096 tokens: finite
     losses and grad norms, launch counts, a checkpoint read back bit for bit;
+    with MoE layers, the first layer's aux loss at step 0 inside
+    ``MOE_AUX_RANGE`` and the layers' terms summing to the logged aux loss
+    (each recorded as a device tensor, no synchronisation);
     ``reduced`` names what was cut from the configuration."""
     n_layers = cfg.n_layers
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1377,8 +1404,17 @@ def phase_train(cfg, phase: str, profile: bool, batch=TRAIN_BATCH, steps=TRAIN_S
         torch.cuda.reset_peak_memory_stats()
         tr = Trainer(cfg, get_shape("train_4k"), device=DEV, ckpt_dir=ckpt_dir,
                      ckpt_every=steps)
+        terms = []
+        aux_loss = moe._aux_loss
+
+        def recording(gates, top_idx, E):
+            out = aux_loss(gates, top_idx, E)
+            terms.append(out.detach())
+            return out
+
         reset_launches()
-        logs = tr.fit(steps=steps, batch_override=batch)
+        with patched(moe, "_aux_loss", recording):
+            logs = tr.fit(steps=steps, batch_override=batch)
         launches = dict(ops.LAUNCHES)
         tr.ckpt.close()
         peak = torch.cuda.max_memory_allocated()
@@ -1391,6 +1427,17 @@ def phase_train(cfg, phase: str, profile: bool, batch=TRAIN_BATCH, steps=TRAIN_S
             raise AssertionError(f"bad grad norms: {gnorms}")
         if losses[0] >= math.log(cfg.vocab) + 1:
             raise AssertionError(f"first loss {losses[0]} >= ln(V) + 1")
+        auxes = [l["aux_loss"] for l in logs]
+        # step 0's forward: the first call of each MoE layer (the recompute
+        # of remat and the later steps follow)
+        n_moe = sum(spec.moe for spec in cfg.layer_specs())
+        aux_terms = [float(t) for t in terms[:n_moe]]
+        if cfg.moe and not (MOE_AUX_RANGE[0] <= aux_terms[0] <= MOE_AUX_RANGE[1]
+                            and all(math.isfinite(x) for x in auxes)
+                            and abs(sum(aux_terms) - auxes[0]) <= 1e-4 * auxes[0]):
+            raise AssertionError(f"aux losses {auxes}, step 0 by layer {aux_terms}: the "
+                                 f"first layer's outside {MOE_AUX_RANGE}, or the terms do "
+                                 f"not sum to the logged {auxes[0]}")
         params, opt_state = tr._last_state
         per_step = expected_launches(cfg, params)
         want = {name: n * steps for name, n in per_step.items()}
@@ -1413,6 +1460,9 @@ def phase_train(cfg, phase: str, profile: bool, batch=TRAIN_BATCH, steps=TRAIN_S
         res = {"arch": cfg.name, "layers": n_layers, "batch": batch, "seq": SEQ,
                **({"reduced": reduced} if reduced else {}),
                "params": cfg.param_count(), "steps": steps, "losses": losses,
+               **({"aux_losses": auxes, "aux_step0_by_layer": aux_terms,
+                   "aux_range_first_layer_step0": MOE_AUX_RANGE,
+                   "active_params": cfg.active_param_count()} if cfg.moe else {}),
                "grad_norms": gnorms, "step_s": times,
                "step_s_median_after_first": float(np.median(steady)),
                "tokens_per_s": tok / float(np.median(steady)),
@@ -1521,7 +1571,16 @@ def profile_step(tr, params, opt_state, phase: str, per_step: dict, batch: int,
 #: the chunked forward rounds them to bf16; MLA's decode absorbs W_un), and the
 #: difference grows with depth.  Set before the first run on the card (PERF.md);
 #: each model's planted fault must read above its tolerance
-SERVE_ROW_TOL = {"gemma3-1b": 0.1, "mamba2-1.3b": 0.75, "minicpm3-4b": 0.2}
+SERVE_ROW_TOL = {"gemma3-1b": 0.1, "mamba2-1.3b": 0.75, "minicpm3-4b": 0.2,
+                 "olmoe-1b-7b": 0.5}
+#: ... and the median row, for a model whose largest row cannot separate a
+#: sound decode from a faulty one: where two of olmoe's experts have nearly
+#: equal gates, the rounding of the two paths picks either, and a token whose
+#: choice flipped in some layer differs by a tail of up to 0.17 at 8 layers in
+#: a CPU rehearsal at full width (median row 0.017), where the planted fault
+#: reads 0.34 (median 0.25).  The median holds olmoe (its planted fault must
+#: read above it), the largest row guards against a blow-up
+SERVE_MEDIAN_TOL = {"olmoe-1b-7b": 0.08}
 
 
 @contextlib.contextmanager
@@ -1609,11 +1668,36 @@ def mla_heads_latent_swapped(p, x, ckv_cache, kr_cache, pos, cfg):
                                      kr_cache, pos, cfg)
 
 
-#: per mixer: the step function a planted fault replaces, the fault, and the
-#: positions its run decodes (the ring only shows once it wraps, at 512)
+_route = moe._route
+
+
+def moe_gates_not_renormalised(p, x, cfg):
+    """Planted fault: ``moe_apply`` combining with the top gates as the
+    softmax gave them (their sum below 1) instead of renormalised."""
+    def route(p, x, cfg):
+        gates, _, top_idx = _route(p, x, cfg)
+        return gates, gates.gather(-1, top_idx), top_idx
+
+    with patched(moe, "_route", route):
+        return moe.moe_apply(p, x, cfg)
+
+
+#: per mixer, or "moe" for a model with MoE layers: the step function a planted
+#: fault replaces, the fault, and the positions its run decodes (the ring only
+#: shows once it wraps, at 512)
 SERVE_FAULTS = {"local": ("attn_decode_step", ring_at_pos, SERVE_PROMPT + 64),
                 "mamba": ("ssd_decode_step", ssm_without_decay, 64),
-                "mla": ("mla_decode_step", mla_heads_latent_swapped, 64)}
+                "mla": ("mla_decode_step", mla_heads_latent_swapped, 64),
+                "moe": ("moe_apply", moe_gates_not_renormalised, 64)}
+
+
+def drop_free(cfg):
+    """``cfg`` with capacity_factor E/K for a MoE model: capacity C = S, so
+    its forward drops no token, as decode (one token a group) never does."""
+    if not cfg.moe:
+        return cfg
+    return replace(cfg, moe=replace(cfg.moe, capacity_factor=cfg.moe.n_experts
+                                    / cfg.moe.top_k))
 
 
 def profile_decode(cfg, params, cache, toks, start, calls=8) -> dict:
@@ -1649,7 +1733,8 @@ def serve_model(cfg, profile: bool) -> dict:
     """Greedy serving at full width and depth: 8 sequences, the prompt fed a
     token a call, then the greedy tokens; launches, timing, peak memory; then
     decode == forward a row at a time against one teacher-forced forward pass
-    over the same 768 tokens, and the planted fault of the model's mixer."""
+    over the same 768 tokens (a MoE model's with ``drop_free``), and the
+    planted fault of the model's mixer or MoE layer."""
     params = init_params(cfg, 0, DEV)
     B, steps = SERVE_BATCH, SERVE_PROMPT + SERVE_NEW
     toks = torch.zeros((B, steps), dtype=torch.int32, device=DEV)
@@ -1691,10 +1776,11 @@ def serve_model(cfg, profile: bool) -> dict:
     del cache
 
     # decode == the teacher-forced forward over the same tokens, a row at a
-    # time (logits at position t from the tokens up to t)
+    # time (logits at position t from the tokens up to t); a MoE forward
+    # without capacity drops, which decode never makes
     reset_launches()
     with torch.inference_mode():
-        fwd, _ = logits_fn(params, cfg, toks)
+        fwd, _ = logits_fn(params, drop_free(cfg), toks)
     fwd_launches = dict(ops.LAUNCHES)
     if fwd_launches != expected_forward_launches(cfg):
         raise AssertionError(f"serve {cfg.name} forward: launches {fwd_launches}, expected "
@@ -1702,8 +1788,11 @@ def serve_model(cfg, profile: bool) -> dict:
     err = torch.cat([row_rel(dec[:, t:t + 64], fwd[:, t:t + 64]) for t in range(0, steps, 64)],
                     dim=1)                                              # (B, steps)
     agree = float((dec.argmax(dim=-1) == fwd.argmax(dim=-1)).float().mean())
-    tol = SERVE_ROW_TOL[cfg.name]
-    res.update(forward_launches=fwd_launches, tol_row_rel=tol,
+    tol, tol_med = SERVE_ROW_TOL[cfg.name], SERVE_MEDIAN_TOL.get(cfg.name)
+    if cfg.moe:
+        res["forward_capacity_factor"] = drop_free(cfg).moe.capacity_factor
+        res["forward_capacity"] = moe._capacity(steps, drop_free(cfg))
+    res.update(forward_launches=fwd_launches, tol_row_rel=tol, tol_median_row_rel=tol_med,
                decode_vs_forward={"max_row_rel": float(err.max()),
                                   "median_row_rel": float(err.median()),
                                   "max_row_rel_after_prompt": float(err[:, SERVE_PROMPT:].max())},
@@ -1711,23 +1800,30 @@ def serve_model(cfg, profile: bool) -> dict:
                greedy_is_decode_argmax=bool(torch.equal(
                    greedy, dec.argmax(dim=-1).to(torch.int32))))
     del dec
-    if float(err.max()) > tol or not res["greedy_is_decode_argmax"]:
+    if (float(err.max()) > tol or (tol_med is not None and float(err.median()) > tol_med)
+            or not res["greedy_is_decode_argmax"]):
         raise AssertionError(f"serve {cfg.name}: decode != forward: {res['decode_vs_forward']} "
-                             f"(tolerance {tol}); greedy is the argmax: "
+                             f"(tolerance {tol}, median {tol_med}); greedy is the argmax: "
                              f"{res['greedy_is_decode_argmax']}")
 
-    # the planted fault of this model's mixer, teacher-forced over the same
-    # tokens: it must read above the tolerance
-    mixer = next(s.mixer for s in cfg.layer_specs() if s.mixer in SERVE_FAULTS)
-    name, fault, n = SERVE_FAULTS[mixer]
+    # the planted fault of this model's MoE layer or mixer, teacher-forced
+    # over the same tokens: it must read above the tolerance (the median's,
+    # where the model has one)
+    kind = "moe" if cfg.moe else next(s.mixer for s in cfg.layer_specs()
+                                      if s.mixer in SERVE_FAULTS)
+    name, fault, n = SERVE_FAULTS[kind]
     errs = []
     with patched(transformer, name, fault):
         serve_calls(cfg, params, toks, n, lambda t, lg: errs.append(row_rel(lg, fwd[:, t])))
-    read = float(torch.stack(errs).max())
-    res["planted_fault"] = {"fault": fault.__name__, "positions": n, "max_row_rel": read}
-    if read <= tol:
+    errs = torch.stack(errs)
+    read, limit = ((float(errs.max()), tol) if tol_med is None
+                   else (float(errs.median()), tol_med))
+    res["planted_fault"] = {"fault": fault.__name__, "positions": n,
+                            "max_row_rel": float(errs.max()),
+                            "median_row_rel": float(errs.median())}
+    if read <= limit:
         raise AssertionError(f"serve {cfg.name}: the decode == forward check cannot see the "
-                             f"planted fault {fault.__name__}: {read} <= {tol}")
+                             f"planted fault {fault.__name__}: {read} <= {limit}")
     del fwd, params
     return res
 
@@ -1750,8 +1846,9 @@ def phase_serve(cfgs, profile: bool) -> dict:
 
 def parity(cfg, phase: str, seq: int) -> None:
     """Kernel path (``use_flash=True``) vs plain path on the card, fp32: loss
-    to 1e-5, every gradient leaf to 5e-5, and the kernels the kernel path
-    launched counted (forward and backward of ``lm_loss``, no remat)."""
+    and the MoE aux loss to 1e-5, every gradient leaf to 5e-5, and the
+    kernels the kernel path launched counted (forward and backward of
+    ``lm_loss``, no remat)."""
     # every weight in fp32 (the specs give the matrices bf16 whatever the config says)
     params = tree_map(lambda t: t.float(), init_params(cfg, 0, DEV))
     rng = np.random.default_rng(0)
@@ -1760,24 +1857,39 @@ def parity(cfg, phase: str, seq: int) -> None:
     leaves = list(tree_flatten_with_path(params).values())
     for p in leaves:
         p.requires_grad_(True)
-    out = {}
+    out, dropped = {}, []
+
+    def slots(top_idx, E, C):
+        dest = dispatch_slots(top_idx, E, C)
+        dropped.append(int((dest == E * C).sum()))
+        return dest
+
+    dispatch_slots = moe._dispatch_slots
     for flash in (True, False):
         reset_launches()
-        loss, _ = lm_loss(params, replace(cfg, use_flash=flash), inputs, labels)
+        with patched(moe, "_dispatch_slots", slots):
+            loss, metrics = lm_loss(params, replace(cfg, use_flash=flash), inputs, labels)
         grads = torch.autograd.grad(loss, leaves)
-        out[flash] = (loss.item(), grads, dict(ops.LAUNCHES))
+        out[flash] = (loss.item(), grads, dict(ops.LAUNCHES), metrics["aux_loss"].item())
     want = {k: v for k, v in expected_launches(cfg).items() if k != "fused_adam"}
     got = {k: v for k, v in out[True][2].items() if k != "fused_adam"}
     if got != want or any(out[False][2].values()):
         raise AssertionError(f"kernel launches: kernel path {got} (expected {want}), "
                              f"plain path {out[False][2]}")
     dloss = abs(out[True][0] - out[False][0])
+    daux = abs(out[True][3] - out[False][3])
     dgrad = max(max_err(a, b) for a, b in zip(out[True][1], out[False][1], strict=True))
-    if not (dloss <= 1e-5 and dgrad <= 5e-5):
-        raise AssertionError(f"kernel path != plain path: loss {dloss}, grads {dgrad}")
+    if not (dloss <= 1e-5 and daux <= 1e-5 and dgrad <= 5e-5):
+        raise AssertionError(f"kernel path != plain path: loss {dloss}, aux {daux}, "
+                             f"grads {dgrad}")
+    if cfg.moe and not sum(dropped):
+        raise AssertionError(f"{phase}: the forward dropped no entry at capacity "
+                             f"{moe._capacity(seq, cfg)}")
     emit(phase, config=cfg.name, layers=cfg.n_layers, seq=seq, loss=out[True][0],
-         loss_abs_diff=dloss, tol_loss=1e-5, grad_max_abs_diff=dgrad, tol_grad=5e-5,
-         launches=got)
+         loss_abs_diff=dloss, tol_loss=1e-5, aux_loss=out[True][3], aux_abs_diff=daux,
+         grad_max_abs_diff=dgrad, tol_grad=5e-5, launches=got,
+         **({"capacity": moe._capacity(seq, cfg),
+             "dropped_entries_per_layer": dropped[:cfg.n_layers]} if cfg.moe else {}))
 
 
 def phase_parity() -> None:
@@ -1812,55 +1924,75 @@ def decode_logits(cfg, params, toks) -> tuple[torch.Tensor, dict]:
     return torch.stack(out, dim=1), dict(ops.LAUNCHES)
 
 
+def small_params(cfg):
+    """fp32 weights of ``cfg`` on the card, the norm scales (zero at init)
+    drawn at scale 0.2 so that the norms' scales take part."""
+    rng_t = generator(50)
+    return tree_map(lambda t: t.float() + (0.2 * torch.randn(
+        t.shape, generator=rng_t, device=DEV) if t.dtype == torch.float32
+        and not t.any() else 0.0), init_params(cfg, 0, DEV))
+
+
+def serve_parity(cfg, S=128) -> dict:
+    """Decode on the kernel path (``use_flash``: the rmsnorm kernel; launches
+    derived) == decode on the plain path (no launches) == the teacher-forced
+    forward on the kernel path (flash, ssd_chunk, rmsnorm kernels; a MoE
+    model's ``drop_free``), fp32, within ``SERVE_PARITY_TOL``."""
+    params = small_params(cfg)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S)).astype(np.int32)).to(DEV)
+    kcfg, pcfg = replace(cfg, use_flash=True), replace(cfg, use_flash=False)
+    kernel, k_launches = decode_logits(kcfg, params, toks)
+    plain, p_launches = decode_logits(pcfg, params, toks)
+    reset_launches()
+    with torch.inference_mode():
+        fwd, _ = logits_fn(params, drop_free(kcfg), toks)
+    f_launches = dict(ops.LAUNCHES)
+    want = {k: n * S for k, n in expected_decode_launches(cfg).items()}
+    res = {"decode_kernel_vs_plain": max_err(kernel, plain),
+           "decode_vs_forward": max_err(kernel, fwd),
+           "launches_decode_kernel_path": k_launches,
+           "launches_forward": f_launches}
+    if (k_launches != want or any(p_launches.values())
+            or f_launches != expected_forward_launches(cfg)):
+        raise AssertionError(f"parity_serve {cfg.name}: launches {k_launches} (expected "
+                             f"{want}), plain path {p_launches}, forward {f_launches} "
+                             f"(expected {expected_forward_launches(cfg)})")
+    if max(res["decode_kernel_vs_plain"], res["decode_vs_forward"]) > SERVE_PARITY_TOL:
+        raise AssertionError(f"parity_serve {cfg.name}: {res} (tolerance "
+                             f"{SERVE_PARITY_TOL})")
+    return res
+
+
 def phase_parity_serve() -> None:
     """Small fp32 models on the card: gemma3 (window 8: the ring wraps 15
-    times), mamba2, minicpm3, their norm scales (zero at init) drawn at
-    scale 0.2 so that the norms' scales take part.  Decode on the kernel path
-    (``use_flash``: the rmsnorm kernel; launches derived) == decode on the
-    plain path (no launches) == the teacher-forced forward on the kernel path
-    (flash, ssd_chunk, rmsnorm kernels), at S = 128, within
-    ``SERVE_PARITY_TOL``; then minicpm3's kernel path == plain path for loss
-    and gradients."""
+    times), mamba2, minicpm3: ``serve_parity`` at S = 128; then minicpm3's
+    kernel path == plain path for loss and gradients."""
     fp32 = dict(param_dtype="float32", compute_dtype="float32")
     cfgs = [replace(smoke_config("gemma3-1b"), window=8, **fp32), small_ssm(),
             replace(smoke_config("minicpm3-4b"), **fp32)]
-    S, out = 128, {}
-    for cfg in cfgs:
-        rng_t = generator(50)
-        params = tree_map(lambda t: t.float() + (0.2 * torch.randn(
-            t.shape, generator=rng_t, device=DEV) if t.dtype == torch.float32
-            and not t.any() else 0.0), init_params(cfg, 0, DEV))
-        rng = np.random.default_rng(0)
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S)).astype(np.int32)).to(DEV)
-        kcfg, pcfg = replace(cfg, use_flash=True), replace(cfg, use_flash=False)
-        kernel, k_launches = decode_logits(kcfg, params, toks)
-        plain, p_launches = decode_logits(pcfg, params, toks)
-        reset_launches()
-        with torch.inference_mode():
-            fwd, _ = logits_fn(params, kcfg, toks)
-        f_launches = dict(ops.LAUNCHES)
-        want = {k: n * S for k, n in expected_decode_launches(cfg).items()}
-        res = {"decode_kernel_vs_plain": max_err(kernel, plain),
-               "decode_vs_forward": max_err(kernel, fwd),
-               "launches_decode_kernel_path": k_launches,
-               "launches_forward": f_launches}
-        if (k_launches != want or any(p_launches.values())
-                or f_launches != expected_forward_launches(cfg)):
-            raise AssertionError(f"parity_serve {cfg.name}: launches {k_launches} (expected "
-                                 f"{want}), plain path {p_launches}, forward {f_launches} "
-                                 f"(expected {expected_forward_launches(cfg)})")
-        if max(res["decode_kernel_vs_plain"], res["decode_vs_forward"]) > SERVE_PARITY_TOL:
-            raise AssertionError(f"parity_serve {cfg.name}: {res} (tolerance "
-                                 f"{SERVE_PARITY_TOL})")
-        out[cfg.name] = res
-    emit("parity_serve", seq=S, tol=SERVE_PARITY_TOL, models=out)
-    parity(cfgs[2], "parity_mla", S)
+    emit("parity_serve", seq=128, tol=SERVE_PARITY_TOL,
+         models={cfg.name: serve_parity(cfg) for cfg in cfgs})
+    parity(cfgs[2], "parity_mla", 128)
+
+
+def phase_parity_moe() -> None:
+    """A small fp32 olmoe (4 experts, top 2; capacity as configured, so the
+    forward at S = 128 drops entries, and ``parity`` fails unless it does):
+    kernel path == plain path for loss, aux and gradients, then
+    ``serve_parity``."""
+    cfg = replace(smoke_config("olmoe-1b-7b"), param_dtype="float32",
+                  compute_dtype="float32")
+    parity(cfg, "parity_moe", 128)
+    emit("parity_moe_serve", seq=128, tol=SERVE_PARITY_TOL,
+         capacity=moe._capacity(128, cfg), forward_capacity=moe._capacity(128, drop_free(cfg)),
+         models={cfg.name: serve_parity(cfg)})
 
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("env", "build", "kernels", "train", "train_ssm", "train_mla", "serve", "parity",
-          "parity_ssm", "parity_serve")
+PHASES = ("env", "build", "kernels", "train", "train_ssm", "train_mla", "train_moe", "serve",
+          "parity", "parity_ssm", "parity_serve", "parity_moe")
 
 
 def main() -> None:
@@ -1876,23 +2008,36 @@ def main() -> None:
     gemma = replace(get_config("gemma3-1b"), use_flash=True)
     mamba = replace(get_config("mamba2-1.3b"), use_flash=True)
     mla = replace(get_config("minicpm3-4b"), use_flash=True)
+    olmoe = replace(get_config("olmoe-1b-7b"), use_flash=True)
+    seconds, last = {}, time.time()
+
+    def lap(phase):
+        nonlocal last
+        seconds[phase] = round(time.time() - last, 1)
+        last = time.time()
+
     if "env" in phases:
         phase_env()
+        lap("env")
     if "build" in phases:
-        phase_build(norm_widths(gemma, mamba, mla))
+        phase_build(norm_widths(gemma, mamba, mla, olmoe))
+        lap("build")
     timed = None
     if "kernels" in phases:
-        timed = phase_kernels_flash(gemma)
+        timed = phase_kernels_flash(gemma, olmoe)
         torch.cuda.empty_cache()
-        timed["more"] = phase_kernels_more(gemma, mamba, mla)
+        timed["more"] = phase_kernels_more(gemma, mamba, mla, olmoe)
         torch.cuda.empty_cache()
+        lap("kernels")
     launches = {}
     if "train" in phases:
         launches["train"] = phase_train(gemma, "train", args.profile)
         torch.cuda.empty_cache()
+        lap("train")
     if "train_ssm" in phases:
         launches["train_ssm"] = phase_train(mamba, "train_ssm", args.profile)
         torch.cuda.empty_cache()
+        lap("train_ssm")
     if "train_mla" in phases:
         launches["train_mla"] = phase_train(
             replace(mla, n_layers=MLA_LAYERS), "train_mla", args.profile, batch=MLA_BATCH,
@@ -1900,16 +2045,31 @@ def main() -> None:
                                      "62 layers, ≈ 51 GB, leave too little for activations); "
                                      f"batch {MLA_BATCH}")
         torch.cuda.empty_cache()
+        lap("train_mla")
+    if "train_moe" in phases:
+        launches["train_moe"] = phase_train(
+            replace(olmoe, n_layers=MOE_LAYERS), "train_moe", args.profile, batch=MOE_BATCH,
+            steps=MOE_STEPS, reduced=f"n_layers 16 -> {MOE_LAYERS} (weights, gradients and "
+                                     "AdamW state of 16 layers, ≈ 83 GB, do not fit the card)")
+        torch.cuda.empty_cache()
+        lap("train_moe")
     if "serve" in phases:
-        launches.update(phase_serve((gemma, mamba, mla), args.profile))
+        launches.update(phase_serve((gemma, mamba, mla, olmoe), args.profile))
+        lap("serve")
     if "parity" in phases:
         phase_parity()
+        lap("parity")
     if "parity_ssm" in phases:
         phase_parity_ssm()
+        lap("parity_ssm")
     if "parity_serve" in phases:
         phase_parity_serve()
+        lap("parity_serve")
+    if "parity_moe" in phases:
+        phase_parity_moe()
+        lap("parity_moe")
 
-    emit("done", phases=phases, seconds=round(time.time() - t0, 1))
+    emit("done", phases=phases, seconds=round(time.time() - t0, 1), phase_seconds=seconds)
     if timed is not None and {"train", "train_ssm"} <= set(launches):
         line = []
         for name, meta in KERNELS.items():
@@ -1924,11 +2084,13 @@ def main() -> None:
                 entry["launches_per_decode_call"] = {
                     path: n // steps for path, n in by_path.items() if path.startswith("serve_")}
             if name in FLASH:
-                g, w = timed["global"][name], timed["window"][name]
-                entry.update({"max_abs_err": max(g["max_abs_err"], w["max_abs_err"]),
+                g, w, o = (timed[layer][name] for layer in ("global", "window", "olmoe"))
+                entry.update({"max_abs_err": max(g["max_abs_err"], w["max_abs_err"],
+                                                 o["max_abs_err"]),
                               "tol": 2e-2, "rtol": 2e-2,
                               "max_row_rel_err": max(g["max_row_rel_err"],
-                                                     w["max_row_rel_err"]),
+                                                     w["max_row_rel_err"],
+                                                     o["max_row_rel_err"]),
                               "tol_row_rel": BF16_ROW_RTOL,
                               "ms": g["ms"], "plain_ms": g["plain_ms"],
                               "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
@@ -1937,7 +2099,15 @@ def main() -> None:
                                        f"Kv={gemma.n_kv_heads} hd={gemma.head_dim_} causal",
                               "window_layer": {"window": gemma.window, **{
                                   key: w[key] for key in ("ms", "plain_ms", "bound_ms",
-                                                          "bound_by", "library_ms")}}})
+                                                          "bound_by", "library_ms")}},
+                              "olmoe_layer": {
+                                  "shape": f"bf16 B={TRAIN_BATCH} S=T={SEQ} "
+                                           f"H={olmoe.n_heads} Kv={olmoe.n_kv_heads} "
+                                           f"hd={olmoe.head_dim_} causal",
+                                  "launches_train_moe": by_path.get("train_moe"),
+                                  **{key: o[key] for key in (
+                                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "max_abs_err", "max_row_rel_err", "grid")}}})
                 if name != "flash_fwd":
                     # the library's backward computes dq, dk and dv in one call
                     entry["library_note"] = ("whole autograd backward of "
@@ -1945,7 +2115,7 @@ def main() -> None:
                                              "compare with flash_dq + flash_dkv")
                     entry["dq_plus_dkv_ms"] = {
                         layer: timed[layer]["flash_dq"]["ms"] + timed[layer]["flash_dkv"]["ms"]
-                        for layer in ("global", "window")}
+                        for layer in ("global", "window", "olmoe")}
             else:
                 t = timed["more"][name]
                 entry.update({"max_abs_err": t["max_abs_err"], "tol": t.get("tol", 2e-2),

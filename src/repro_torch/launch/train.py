@@ -16,6 +16,8 @@ Runs on the GPU unless ``device="cpu"`` / ``--device cpu`` is given:
       --steps 20 --batch 4 --seq 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
       --steps 20 --batch 4 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --smoke \
+      --device cpu --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b --smoke \
       --device cpu --steps 20 --ckpt-dir ckpt_smoke
 """
@@ -181,7 +183,9 @@ def main(argv: list[str] | None = None) -> None:
     if tr.ckpt:
         tr.ckpt.close()
     first, last = logs[0], logs[-1]
-    print(f"steps={len(logs)} loss {first['loss']:.4f} -> {last['loss']:.4f} "
+    aux = (f" aux_loss {first['aux_loss']:.4f} -> {last['aux_loss']:.4f}"
+           if any(s.moe for s in cfg.layer_specs()) else "")
+    print(f"steps={len(logs)} loss {first['loss']:.4f} -> {last['loss']:.4f}{aux} "
           f"stragglers={tr.stragglers} failures={tr.failures}")
 
 

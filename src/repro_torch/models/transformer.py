@@ -1,12 +1,16 @@
 """The composable decoder-only model, assembled from a ModelConfig.
 
 Mixers ``attn``, ``local`` (GQA attention), ``mla`` (multi-head latent
-attention) and ``mamba`` (Mamba-2 SSD), with an MLP or none; MoE layers wait
-for their slice.  With ``cfg.use_flash`` every RMSNorm (``ln1``, ``ln2``,
-``final_norm`` and the mixers' own) is the hand-written kernel
-(``kernels.ops.rmsnorm``: fp32 product, one cast); without it,
-``layers.rmsnorm`` (the reference model's rounding order).  Decode takes the
-same norms as the forward, so decode ≡ forward holds within the port.
+attention) and ``mamba`` (Mamba-2 SSD), each followed by an MLP, a
+Mixture-of-Experts layer (``spec.moe``, ``models.moe``; its load-balance loss
+is summed over the layers as ``aux_loss``) or neither.  With
+``cfg.use_flash`` every RMSNorm (``ln1``, ``ln2``, ``final_norm`` and the
+mixers' own) is the hand-written kernel (``kernels.ops.rmsnorm``: fp32
+product, one cast); without it, ``layers.rmsnorm`` (the reference model's
+rounding order).  Decode takes the same norms as the forward, so decode ≡
+forward holds within the port wherever the forward drops no MoE entry (a
+decode step routes one token a group, and its capacity of at least 8 slots
+an expert never drops).
 
 The layer stack follows the reference's parameter layout — the smallest
 repeating block pattern (``cfg.scan_period()``) with parameters stacked along
@@ -35,6 +39,7 @@ from .attention import (attn_decode_step, attn_specs, gqa_attention,
                         mla_attention, mla_decode_step, mla_specs)
 from .layers import (PSpec, embed_lookup, map_specs, materialize, mlp_apply,
                      mlp_specs, norm, rmsnorm_spec, stack_specs)
+from .moe import moe_apply, moe_specs
 from .ssm import ssd_apply, ssd_decode_step, ssm_specs
 
 
@@ -54,9 +59,9 @@ def block_specs(cfg, spec) -> dict:
     else:
         raise ValueError(f"unknown mixer {spec.mixer!r}")
     if spec.moe:
-        raise NotImplementedError(
-            "MoE layers are not ported yet: they wait for the MoE slice of the port")
-    if cfg.mlp != "none":
+        out["ln2"] = rmsnorm_spec(cfg.d_model)
+        out["moe"] = moe_specs(cfg)
+    elif cfg.mlp != "none":
         out["ln2"] = rmsnorm_spec(cfg.d_model)
         out["mlp"] = mlp_specs(cfg)
     return out
@@ -99,6 +104,7 @@ def init_params(cfg, seed: int, device="cuda"):
 
 
 def _apply_layer(prm, x, cfg, spec, positions):
+    """One block: (x, the MoE layer's aux loss, or a zero)."""
     h = norm(x, prm["ln1"]["scale"], cfg)
     if spec.mixer == "attn":
         mix = gqa_attention(prm["attn"], h, cfg, positions, window=None)
@@ -109,10 +115,15 @@ def _apply_layer(prm, x, cfg, spec, positions):
     else:
         mix = ssd_apply(prm["mixer"], h, cfg)
     x = x + mix
-    if cfg.mlp != "none":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.moe:
+        h2 = norm(x, prm["ln2"]["scale"], cfg)
+        y, aux = moe_apply(prm["moe"], h2, cfg)
+        x = x + y
+    elif cfg.mlp != "none":
         h2 = norm(x, prm["ln2"]["scale"], cfg)
         x = x + mlp_apply(prm["mlp"], h2, cfg)
-    return x
+    return x, aux
 
 
 def _unstack(tree, n: int) -> list:
@@ -135,7 +146,8 @@ def _embed(params, cfg, inputs):
 def forward_hidden(params, cfg, inputs, positions=None):
     """inputs: tokens (B,S) int32, or embeddings (B,S,D) for stub-frontend
     archs.  Returns (hidden (B,S,D), aux_loss).  ``aux_loss`` is the MoE
-    load-balancing term: zero until the MoE slice."""
+    load-balancing term summed over the layers (each period's sum, then the
+    remainder's layers, in the reference's order): zero without MoE."""
     specs = cfg.layer_specs()
     period = cfg.scan_period()
     n_full = cfg.n_layers // period
@@ -146,23 +158,27 @@ def forward_hidden(params, cfg, inputs, positions=None):
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
 
     def period_body(x, per_params):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(period):
-            x = _apply_layer(per_params[str(i)], x, cfg, specs[i], positions)
-        return x
+            x, a = _apply_layer(per_params[str(i)], x, cfg, specs[i], positions)
+            aux = aux + a
+        return x, aux
 
     use_remat = cfg.remat != "none" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if n_full > 0:
         for per_params in _unstack(params["scan"], n_full):
             if use_remat:
-                x = checkpoint(period_body, x, per_params, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, a = checkpoint(period_body, x, per_params, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = period_body(x, per_params)
+                x, a = period_body(x, per_params)
+            aux = aux + a
     for j, prm in sorted(params.get("rem", {}).items(), key=lambda kv: int(kv[0])):
-        x = _apply_layer(prm, x, cfg, specs[n_full * period + int(j)], positions)
+        x, a = _apply_layer(prm, x, cfg, specs[n_full * period + int(j)], positions)
+        aux = aux + a
 
     x = norm(x, params["final_norm"]["scale"], cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
 
 
@@ -244,7 +260,12 @@ def _decode_layer(prm, cache, x, pos, cfg, spec):
         mix, _, _ = ssd_decode_step(prm["mixer"], h, cache["conv"],
                                     cache["state"], cfg)
     x = x + mix
-    if cfg.mlp != "none":
+    if spec.moe:
+        # one token a group: capacity max(8, ·) ≥ top_k, nothing is dropped
+        h2 = norm(x, prm["ln2"]["scale"], cfg)
+        y, _ = moe_apply(prm["moe"], h2, cfg)
+        x = x + y
+    elif cfg.mlp != "none":
         h2 = norm(x, prm["ln2"]["scale"], cfg)
         x = x + mlp_apply(prm["mlp"], h2, cfg)
     return x

@@ -2,7 +2,9 @@
 microbatched gradient accumulation.
 
 ``make_train_step`` returns
-``(params, opt_state, batch, step) -> (params, opt_state, metrics)``.
+``(params, opt_state, batch, step) -> (params, opt_state, metrics)``; the
+metrics hold the loss, the MoE aux loss (a microbatches' mean under
+accumulation) and the grad norm.
 Gradients come from ``torch.autograd.grad`` over the leaves of the parameter
 tree; the optimizer then updates those leaves **in place**, so the returned
 trees hold the tensors that came in.  ``make_serve_step`` returns
@@ -46,13 +48,15 @@ def make_train_step(cfg, optimizer: Optimizer, grad_accum: int = 1,
             g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
                                                    device=p.device), params)
             loss_sum = torch.zeros((), dtype=torch.float32, device=inputs.device)
+            aux_sum = torch.zeros((), dtype=torch.float32, device=inputs.device)
             for a in range(grad_accum):
                 sl = slice(a * mb, (a + 1) * mb)
                 m, g = grad_fn(params, inputs[sl], labels[sl])
                 tree_map(lambda acc, b: acc.add_(b.to(adt)), g_acc, g)
                 loss_sum = loss_sum + m["loss"]
+                aux_sum = aux_sum + m["aux_loss"]
             grads = tree_map(lambda g: g.float() / grad_accum, g_acc)
-            metrics = {"loss": loss_sum / grad_accum}
+            metrics = {"loss": loss_sum / grad_accum, "aux_loss": aux_sum / grad_accum}
 
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         params, opt_state = optimizer.update(grads, opt_state, params, step)

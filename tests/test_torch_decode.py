@@ -18,6 +18,22 @@ six layers); 5e-2 for bf16 logits, the bf16 logits tolerance of
 and on the kernel route every norm rounds once after its fp32 product where
 the reference rounds before it (T1); the largest difference seen was 2.5e-2
 on logits of magnitude 0.7.  Port decode ≡ port forward in fp32: 2e-5.
+jamba's caches in fp32: 2e-5 of the leaf's largest entry where that is above
+1 (its SSM states reach 12 after 24 steps through 8 layers; the largest
+difference seen was 5.2e-5 there, logits within 3e-6).
+
+MoE in bf16: a rounding difference upstream of a router (the kernel route's
+norm, the port's fp32 sum of a token's expert outputs) flips the choice
+between two nearly equal gates, and a flipped choice changes that token's
+output by a whole expert's share.  The smoke routers' init (std 0.02 over 64
+inputs) gives 4 gates of 0.25 ± 0.04, so flips are common: 1–4 % of the bf16
+logits differ by up to 0.24.  Neither side is at fault, so the bf16 case
+draws the MoE routers at std 1 (gates well apart, no flip) and holds the rest
+of the arithmetic at 5e-2; the fp32 cases keep the init.  jamba is held in
+fp32 only: its smallest config is one period of 8 layers, and at that depth
+bf16 rounding drifts past 5e-2 whatever the MoE does (0.055 / 0.069 on the
+plain / kernel route with its MoE layers removed, as mamba2 at 8 layers reads
+0.032 / 0.056).
 """
 
 from dataclasses import replace
@@ -39,10 +55,13 @@ from repro_torch.training.train_step import make_serve_step
 
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
 ROUTES = {"plain": dict(use_flash=False), "kernel": dict(use_flash=True)}
-#: the archs the port builds: mixers attn, local, mamba, mla; both input modes
+#: every arch: mixers attn, local, mamba, mla, MoE layers (jamba: mamba and
+#: attn with MoE every second layer); both input modes
 ARCHS = ["gemma3-1b", "mamba2-1.3b", "minicpm3-4b", "phi3-medium-14b", "nemotron-4-340b",
-         "internvl2-26b", "musicgen-medium"]
-TOKEN_ARCHS = ARCHS[:5]
+         "olmoe-1b-7b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b", "internvl2-26b",
+         "musicgen-medium"]
+TOKEN_ARCHS = ARCHS[:8]
+BF16_ARCHS = [a for a in ARCHS if a != "jamba-1.5-large-398b"]
 STEPS = 24
 
 
@@ -55,12 +74,15 @@ def small(arch, **kw):
             replace(ref_configs.smoke_config(arch), **kw))
 
 
-def shared_params(ref_cfg, fp32=True, seed=0):
+def shared_params(ref_cfg, fp32=True, seed=0, router_scale=1.0):
     """(jax tree, torch tree) holding the same numbers; fp32 leaves that
     the init leaves at zero (norm scales, ``A_log``, ``dt_bias``) get values
-    of scale 0.2."""
+    of scale 0.2; MoE routers are multiplied by ``router_scale``."""
     jp = ref_layers.materialize(ref_transformer.param_specs(ref_cfg),
                                 jax.random.PRNGKey(seed))
+    if router_scale != 1.0:
+        jp = jax.tree_util.tree_map_with_path(
+            lambda path, a: a * router_scale if path[-1].key == "router" else a, jp)
     if fp32:
         jp = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
     rng = np.random.default_rng(seed + 5)
@@ -147,16 +169,17 @@ def test_decode_step_matches_reference_fp32(arch, route):
     # the caches the steps wrote, too
     ref = tree_flatten_with_path(jax.tree.map(np.asarray, rc))
     for k, t in tree_flatten_with_path(to_reference(tc)).items():
-        np.testing.assert_allclose(t, ref[k], atol=2e-5, err_msg=k)
+        scale = max(1.0, float(np.abs(ref[k]).max())) if arch == "jamba-1.5-large-398b" else 1.0
+        np.testing.assert_allclose(t, ref[k], atol=2e-5 * scale, err_msg=k)
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", BF16_ARCHS)
 def test_decode_step_matches_reference_bf16(arch, route):
     """The configured dtypes: bf16 weights, activations and KV caches (fp32
-    SSM caches).  5e-2 (see the module docstring)."""
+    SSM caches).  5e-2, MoE routers at std 1 (see the module docstring)."""
     cfg, ref_cfg = small(arch, **ROUTES[route])
-    jp, tp = shared_params(ref_cfg, fp32=False)
+    jp, tp = shared_params(ref_cfg, fp32=False, router_scale=50.0)
     x = make_inputs(cfg, 2, STEPS)
     want, got, _ = decode_both(cfg, ref_cfg, jp, tp, x, STEPS)
     np.testing.assert_allclose(got, want, atol=5e-2)
@@ -253,7 +276,10 @@ def test_categorical_draws_follow_the_distribution():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward_fp32(arch, route):
     """Decode over 24 positions ≡ the teacher-forced forward's logits at
-    those positions, within the port (fp32, 2e-5)."""
+    those positions, within the port (fp32, 2e-5).  A MoE forward runs with
+    capacity_factor = E/K (C = S), so that it drops nothing: decode routes a
+    token a group and never drops (``test_torch_moe.py`` shows the two
+    differ where the forward drops)."""
     cfg, ref_cfg = small(arch, **FP32, **ROUTES[route])
     _, tp = shared_params(ref_cfg)
     x = torch.from_numpy(make_inputs(cfg, 2, STEPS, seed=2))
@@ -262,6 +288,9 @@ def test_decode_matches_forward_fp32(arch, route):
     for t in range(STEPS):
         lg, cache = transformer.decode_step(tp, cache, cfg, x[:, t:t + 1], t)
         got.append(f32(lg))
+    if cfg.moe:
+        cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=cfg.moe.n_experts
+                                       / cfg.moe.top_k))
     want, _ = transformer.logits_fn(tp, cfg, x)
     np.testing.assert_allclose(np.concatenate(got, 1), f32(want), atol=2e-5)
 

@@ -293,9 +293,3 @@ def test_loss_constants_and_auto_chunk_rule():
     a, _ = loss.lm_loss(tp, scfg, torch.from_numpy(x), torch.from_numpy(y))
     b, _ = loss.lm_loss(tp, scfg, torch.from_numpy(x), torch.from_numpy(y), loss_chunk=16)
     np.testing.assert_allclose(float(a), float(b), rtol=1e-6)
-
-
-@pytest.mark.parametrize("arch,what", [("jamba-1.5-large-398b", "MoE"), ("olmoe-1b-7b", "MoE")])
-def test_later_slices_raise_by_name(arch, what):
-    with pytest.raises(NotImplementedError, match=what):
-        transformer.param_specs(configs.smoke_config(arch))
