@@ -37,6 +37,18 @@ Phases, each printing one JSON line (or a few):
   train_moe   the same for olmoe-1b-7b (Mixture-of-Experts) at full width and
               8 of 16 layers, batch 4 x 4096, 6 steps; also the aux loss at
               step 0
+              (every train phase runs its config's remat="dots": the matrix
+              products' outputs kept, the rest of each period recomputed)
+  remat       gemma3-1b as in train, 3 steps under each remat policy (none,
+              full, dots, dots_no_batch, and save:mlp_hidden,qkv from MONET's
+              keep-set): step time, tokens/s, peak memory, launches; losses
+              and grad norms equal bit for bit, peaks rising full < keep-set
+              < dots < none, and a planted fault (nothing kept, named dots)
+              that must break that order
+  train_opt   gemma3-1b as in train, 4 steps with each of sgd_momentum,
+              adafactor and galore_adamw: losses, launches, the state tree
+              as opt.init gives it, a checkpoint read back bit for bit, the
+              time of one opt.update beside AdamW's, peak memory
   serve       make_serve_step on full-width, full-depth gemma3-1b,
               mamba2-1.3b, minicpm3-4b and olmoe-1b-7b: 8 sequences, a
               512-token prompt fed token by token, then 256 greedy tokens (768
@@ -53,6 +65,9 @@ Phases, each printing one JSON line (or a few):
   parity_moe  small fp32 olmoe (capacity as configured: tokens are dropped):
               kernel path == plain path for loss, aux and grads; decode on the
               kernel path == decode on the plain path == the drop-free forward
+  parity_opt  small fp32 gemma3: 3 updates of sgd_momentum, adafactor and
+              galore_adamw on the card == on the CPU, each leaf to 1e-6 of
+              its largest entry
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 non-zero and the last line is not printed.  There is no CPU fallback.
@@ -73,6 +88,7 @@ import tempfile
 import time
 from collections import Counter
 from dataclasses import replace
+from unittest import mock
 
 import numpy as np
 import torch
@@ -87,6 +103,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.ckpt.store import latest_step, load_checkpoint  # noqa: E402
 from repro_torch.configs import get_config, get_shape, smoke_config  # noqa: E402
 from repro_torch.convert import tree_flatten_with_path, tree_map  # noqa: E402
+from repro_torch.core import remat_policy  # noqa: E402
+from repro_torch.core.remat_policy import keepset_to_policy, resolve_remat  # noqa: E402
 from repro_torch.data.pipeline import make_tokens  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -97,6 +115,7 @@ from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
 from repro_torch.launch.train import Trainer  # noqa: E402
 from repro_torch.models import attention, moe, ssm, transformer  # noqa: E402
 from repro_torch.models.transformer import init_cache, init_params, logits_fn  # noqa: E402
+from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.training.loss import lm_loss  # noqa: E402
 from repro_torch.training.train_step import make_serve_step  # noqa: E402
 
@@ -1348,11 +1367,12 @@ def expected_decode_launches(cfg) -> dict:
     return out
 
 
-def expected_launches(cfg, params=None) -> dict:
+def expected_launches(cfg, params=None, optimizer="adamw") -> dict:
     """Kernel launches of one training step, derived from the model code.
     Each layer runs its forward once, and once more in the backward when its
-    period is recomputed (``cfg.remat != "none"``: every scanned layer; the
-    remainder layers are not recomputed).  A layer's forward launches one
+    period is recomputed (``resolve_remat(cfg.remat)`` says to remat: every
+    scanned layer, under every policy, since no policy keeps what a kernel
+    wrapper allocates; the remainder layers are not recomputed).  A layer's forward launches one
     rmsnorm for each of its norms (``layer_norms``), one flash_fwd for an
     attention mixer and one
     ssd_chunk for a mamba mixer; its backward one rmsnorm_bwd for each of
@@ -1361,9 +1381,10 @@ def expected_launches(cfg, params=None) -> dict:
     (ssd_chunk has no backward kernel).  Then the final norm and its
     backward, and, given the parameter tree ``params``, fused_adam once per
     (p, g, m/v) dtype group of AdamW's leaves (gradients in the params'
-    dtypes, m and v in ``cfg.state_dtype``) and ``fad.MAX_LEAVES`` leaves."""
+    dtypes, m and v in ``cfg.state_dtype``) and ``fad.MAX_LEAVES`` leaves;
+    the other optimizers launch no kernel."""
     period = cfg.scan_period()
-    recomputed = (cfg.n_layers // period) * period if cfg.remat != "none" else 0
+    recomputed = (cfg.n_layers // period) * period if resolve_remat(cfg.remat)[0] else 0
     out = dict.fromkeys(KERNELS, 0)
     for i, spec in enumerate(cfg.layer_specs()):
         runs = 2 if i < recomputed else 1
@@ -1378,7 +1399,7 @@ def expected_launches(cfg, params=None) -> dict:
         out["rmsnorm_bwd"] += norms
     out["rmsnorm"] += 1
     out["rmsnorm_bwd"] += 1
-    if params is not None:
+    if params is not None and optimizer == "adamw":
         state = getattr(torch, cfg.state_dtype)
         out["fused_adam"] = adam_launches((p.dtype, p.dtype, state)
                                           for p in tree_flatten_with_path(params).values())
@@ -1390,60 +1411,61 @@ def reset_launches() -> None:
         ops.LAUNCHES[name] = 0
 
 
-def phase_train(cfg, phase: str, profile: bool, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
-                reduced=None) -> dict:
-    """``steps`` steps of ``Trainer.fit`` at ``batch`` × 4096 tokens: finite
-    losses and grad norms, launch counts, a checkpoint read back bit for bit;
-    with MoE layers, the first layer's aux loss at step 0 inside
-    ``MOE_AUX_RANGE`` and the layers' terms summing to the logged aux loss
-    (each recorded as a device tensor, no synchronisation);
-    ``reduced`` names what was cut from the configuration."""
-    n_layers = cfg.n_layers
-    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        tr = Trainer(cfg, get_shape("train_4k"), device=DEV, ckpt_dir=ckpt_dir,
-                     ckpt_every=steps)
-        terms = []
-        aux_loss = moe._aux_loss
+def fit_and_check(cfg, batch: int, steps: int, optimizer: str = "adamw",
+                  ckpt_dir: str | None = None) -> tuple[dict, Trainer, dict]:
+    """``steps`` steps of ``Trainer.fit`` at ``batch`` × 4096 tokens with
+    ``optimizer`` (AdamW on its warm-up schedule, the others at a constant
+    lr, as the Trainer passes them): finite losses and grad norms, the first
+    loss below ln V + 1, launch counts as derived, a checkpoint read back bit
+    for bit when ``ckpt_dir`` is given; with MoE layers, the first layer's
+    aux loss at step 0 inside ``MOE_AUX_RANGE`` and the layers' terms summing
+    to the logged aux loss (each recorded as a device tensor, no
+    synchronisation).  Returns (the results, the trainer, its launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, get_shape("train_4k"), optimizer=optimizer, device=DEV,
+                 ckpt_dir=ckpt_dir, ckpt_every=steps)
+    terms = []
+    aux_loss = moe._aux_loss
 
-        def recording(gates, top_idx, E):
-            out = aux_loss(gates, top_idx, E)
-            terms.append(out.detach())
-            return out
+    def recording(gates, top_idx, E):
+        out = aux_loss(gates, top_idx, E)
+        terms.append(out.detach())
+        return out
 
-        reset_launches()
-        with patched(moe, "_aux_loss", recording):
-            logs = tr.fit(steps=steps, batch_override=batch)
-        launches = dict(ops.LAUNCHES)
+    reset_launches()
+    with patched(moe, "_aux_loss", recording):
+        logs = tr.fit(steps=steps, batch_override=batch)
+    launches = dict(ops.LAUNCHES)
+    if tr.ckpt:
         tr.ckpt.close()
-        peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
 
-        losses = [l["loss"] for l in logs]
-        gnorms = [l["grad_norm"] for l in logs]
-        if len(logs) != steps or not all(math.isfinite(x) and x > 0 for x in losses):
-            raise AssertionError(f"bad losses: {losses}")
-        if not all(math.isfinite(x) and x > 0 for x in gnorms):
-            raise AssertionError(f"bad grad norms: {gnorms}")
-        if losses[0] >= math.log(cfg.vocab) + 1:
-            raise AssertionError(f"first loss {losses[0]} >= ln(V) + 1")
-        auxes = [l["aux_loss"] for l in logs]
-        # step 0's forward: the first call of each MoE layer (the recompute
-        # of remat and the later steps follow)
-        n_moe = sum(spec.moe for spec in cfg.layer_specs())
-        aux_terms = [float(t) for t in terms[:n_moe]]
-        if cfg.moe and not (MOE_AUX_RANGE[0] <= aux_terms[0] <= MOE_AUX_RANGE[1]
-                            and all(math.isfinite(x) for x in auxes)
-                            and abs(sum(aux_terms) - auxes[0]) <= 1e-4 * auxes[0]):
-            raise AssertionError(f"aux losses {auxes}, step 0 by layer {aux_terms}: the "
-                                 f"first layer's outside {MOE_AUX_RANGE}, or the terms do "
-                                 f"not sum to the logged {auxes[0]}")
-        params, opt_state = tr._last_state
-        per_step = expected_launches(cfg, params)
-        want = {name: n * steps for name, n in per_step.items()}
-        if launches != want:
-            raise AssertionError(f"launch counts {launches}, expected {want}")
+    losses = [l["loss"] for l in logs]
+    gnorms = [l["grad_norm"] for l in logs]
+    if len(logs) != steps or not all(math.isfinite(x) and x > 0 for x in losses):
+        raise AssertionError(f"bad losses: {losses}")
+    if not all(math.isfinite(x) and x > 0 for x in gnorms):
+        raise AssertionError(f"bad grad norms: {gnorms}")
+    if losses[0] >= math.log(cfg.vocab) + 1:
+        raise AssertionError(f"first loss {losses[0]} >= ln(V) + 1")
+    auxes = [l["aux_loss"] for l in logs]
+    # step 0's forward: the first call of each MoE layer (the recompute
+    # of remat and the later steps follow)
+    n_moe = sum(spec.moe for spec in cfg.layer_specs())
+    aux_terms = [float(t) for t in terms[:n_moe]]
+    if cfg.moe and not (MOE_AUX_RANGE[0] <= aux_terms[0] <= MOE_AUX_RANGE[1]
+                        and all(math.isfinite(x) for x in auxes)
+                        and abs(sum(aux_terms) - auxes[0]) <= 1e-4 * auxes[0]):
+        raise AssertionError(f"aux losses {auxes}, step 0 by layer {aux_terms}: the "
+                             f"first layer's outside {MOE_AUX_RANGE}, or the terms do "
+                             f"not sum to the logged {auxes[0]}")
+    params, opt_state = tr._last_state
+    per_step = expected_launches(cfg, params, optimizer)
+    want = {name: n * steps for name, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
 
+    if ckpt_dir:
         if latest_step(ckpt_dir) != steps:
             raise AssertionError("no checkpoint was committed at the last step")
         tmpl = {"params": params, "opt": opt_state}
@@ -1454,28 +1476,162 @@ def phase_train(cfg, phase: str, profile: bool, batch=TRAIN_BATCH, steps=TRAIN_S
                 raise AssertionError(f"checkpoint leaf {key} differs from the live state")
         del loaded
 
-        times = [l["time_s"] for l in logs]
-        steady = times[1:]
-        tok = batch * SEQ
-        res = {"arch": cfg.name, "layers": n_layers, "batch": batch, "seq": SEQ,
-               **({"reduced": reduced} if reduced else {}),
-               "params": cfg.param_count(), "steps": steps, "losses": losses,
-               **({"aux_losses": auxes, "aux_step0_by_layer": aux_terms,
-                   "aux_range_first_layer_step0": MOE_AUX_RANGE,
-                   "active_params": cfg.active_param_count()} if cfg.moe else {}),
-               "grad_norms": gnorms, "step_s": times,
-               "step_s_median_after_first": float(np.median(steady)),
-               "tokens_per_s": tok / float(np.median(steady)),
-               "peak_memory_bytes": peak, "launches": launches,
-               "launches_per_step": per_step,
-               "checkpoint_step": manifest["step"], "checkpoint_bitexact": True}
-        emit(phase, **res)
+    times = [l["time_s"] for l in logs]
+    steady = float(np.median(times[1:]))
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch, "seq": SEQ,
+           "remat": cfg.remat, "optimizer": optimizer,
+           "params": cfg.param_count(), "steps": steps, "losses": losses,
+           **({"aux_losses": auxes, "aux_step0_by_layer": aux_terms,
+               "aux_range_first_layer_step0": MOE_AUX_RANGE,
+               "active_params": cfg.active_param_count()} if cfg.moe else {}),
+           "grad_norms": gnorms, "step_s": times, "step_s_median_after_first": steady,
+           "tokens_per_s": batch * SEQ / steady, "peak_memory_bytes": peak,
+           "launches": launches, "launches_per_step": per_step,
+           **({"checkpoint_step": manifest["step"], "checkpoint_bitexact": True}
+              if ckpt_dir else {})}
+    return res, tr, launches
 
+
+def phase_train(cfg, phase: str, profile: bool, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                reduced=None) -> dict:
+    """``fit_and_check`` with a checkpoint written to ``$TMPDIR`` and read
+    back; ``reduced`` names what was cut from the configuration.  Returns the
+    launches."""
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        res, tr, launches = fit_and_check(cfg, batch, steps, ckpt_dir=ckpt_dir)
+        emit(phase, **({"reduced": reduced} if reduced else {}), **res)
         if profile:
-            profile_step(tr, params, opt_state, phase, per_step, batch, steps)
+            profile_step(tr, *tr._last_state, phase, res["launches_per_step"], batch, steps)
         return launches
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+#: remat: gemma3-1b trained under each policy, by the name reported: the four
+#: named ones, and the policy of MONET's keep-set of
+#: ``tests/test_system.py::test_monet_decision_drives_real_jax_step``
+REMAT_KEEPSET = {"l0.fc1.out", "l0.q.out"}
+REMAT_STEPS = 3
+#: peak memory must rise in this order: what each policy keeps, reckoned from
+#: the shapes (PERF.md)
+REMAT_ORDER = ("full", "keepset", "dots", "none")
+
+
+def remat_policies() -> dict[str, str]:
+    """{reported name: ``cfg.remat``}; the keep-set's policy as the config
+    knob names it (``save:`` and its families)."""
+    names = sorted(keepset_to_policy(REMAT_KEEPSET).names)
+    return {"none": "none", "full": "full", "dots": "dots", "dots_no_batch": "dots_no_batch",
+            "keepset": "save:" + ",".join(names)}
+
+
+def order_violations(peaks: dict) -> list[str]:
+    """The pairs of ``REMAT_ORDER`` whose peak memory does not rise."""
+    return [f"{a} {peaks[a]} >= {b} {peaks[b]}" for a, b in zip(REMAT_ORDER, REMAT_ORDER[1:])
+            if peaks[a] >= peaks[b]]
+
+
+def phase_remat(cfg, profile: bool) -> dict:
+    """gemma3-1b at full width and depth, batch 4 × 4096, ``REMAT_STEPS``
+    steps of ``Trainer.fit`` from seed 0 under each policy: step time,
+    tokens/s, peak memory and launches (derived per policy).  The policies
+    choose only what is kept, so the losses and grad norms must be equal bit
+    for bit, and the peaks must rise in ``REMAT_ORDER``; a planted fault (a
+    policy that keeps nothing, under the name ``dots``) must break the order.
+    With ``--profile``, one more step under ``full`` and under ``dots``.
+    Returns the launches by policy."""
+    runs, launches = {}, {}
+    for name, remat in remat_policies().items():
+        res, tr, launches[f"remat_{name}"] = fit_and_check(replace(cfg, remat=remat),
+                                                           TRAIN_BATCH, REMAT_STEPS)
+        runs[name] = res
+        if profile and name in ("full", "dots"):
+            profile_step(tr, *tr._last_state, f"remat_{name}", res["launches_per_step"],
+                         TRAIN_BATCH, REMAT_STEPS)
+        del tr           # and with it the run's weights and state, before the next
+        torch.cuda.empty_cache()
+    with mock.patch.dict(remat_policy.POLICIES, {"dots": remat_policy.nothing_saveable}):
+        fault, tr, _ = fit_and_check(replace(cfg, remat="dots"), TRAIN_BATCH, REMAT_STEPS)
+    del tr
+    torch.cuda.empty_cache()
+
+    peaks = {name: r["peak_memory_bytes"] for name, r in runs.items()}
+    violations = order_violations(peaks)
+    fault_violations = order_violations({**peaks, "dots": fault["peak_memory_bytes"]})
+    ref = runs["none"]
+    diff = {name: max(abs(a - b) for a, b in zip(r["losses"] + r["grad_norms"],
+                                                 ref["losses"] + ref["grad_norms"],
+                                                 strict=True))
+            for name, r in runs.items()}
+    emit("remat", arch=cfg.name, layers=cfg.n_layers, batch=TRAIN_BATCH, seq=SEQ,
+         steps=REMAT_STEPS, keepset=sorted(REMAT_KEEPSET), order=REMAT_ORDER,
+         policies={name: {key: r[key] for key in (
+             "remat", "losses", "grad_norms", "step_s", "step_s_median_after_first",
+             "tokens_per_s", "peak_memory_bytes", "launches_per_step")}
+             for name, r in runs.items()},
+         max_abs_diff_from_none=diff, order_violations=violations,
+         planted_fault={"what": "a policy that keeps nothing, under the name dots",
+                        "peak_memory_bytes": fault["peak_memory_bytes"],
+                        "order_violations": fault_violations})
+    if max(diff.values()) != 0.0 or violations or not fault_violations:
+        raise AssertionError(f"remat: losses and grad norms apart from none's by {diff}, "
+                             f"peak order violations {violations}, the planted fault's "
+                             f"{fault_violations} (must be some)")
+    return launches
+
+
+#: train_opt: the optimizers that launch no kernel, on gemma3-1b
+OPTIMIZERS = ("sgd_momentum", "adafactor", "galore_adamw")
+OPT_STEPS = 4
+
+
+def phase_train_opt(cfg) -> dict:
+    """gemma3-1b at full width and depth, batch 4 × 4096, ``OPT_STEPS`` steps
+    of ``Trainer.fit`` with each of ``OPTIMIZERS`` (``fit_and_check``: finite
+    losses and grad norms, launches, a checkpoint to ``$TMPDIR`` read back
+    bit for bit), the state tree's keys, shapes and dtypes as ``opt.init``
+    gives them (on the meta device), the time of one ``opt.update`` over the
+    whole tree by CUDA events beside AdamW's (one ``fused_adam_multi`` call),
+    and peak memory.  Returns the launches by optimizer."""
+    launches, out = {}, {}
+    rng = generator(21)
+    for name in OPTIMIZERS:
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            res, tr, launches[f"train_opt_{name}"] = fit_and_check(
+                cfg, TRAIN_BATCH, OPT_STEPS, optimizer=name, ckpt_dir=ckpt_dir)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        params, state = tr._last_state
+        meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), params)
+        want = {k: (tuple(t.shape), t.dtype) for k, t in
+                tree_flatten_with_path(tr.opt.init(meta)).items()}
+        got = {k: (tuple(t.shape), t.dtype) for k, t in tree_flatten_with_path(state).items()}
+        if got != want:
+            raise AssertionError(f"{name}: state tree {sorted(set(got) ^ set(want))[:5]} "
+                                 f"differs from opt.init's")
+        grads = tree_map(lambda p: randn(rng, p.shape, p.dtype, 1e-3), params)
+        res["update_ms"] = time_ms(lambda: tr.opt.update(grads, state, params, OPT_STEPS), 3)
+        res["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tree_flatten_with_path(state).values())
+        out[name] = res
+        del tr, params, state, grads, meta
+        torch.cuda.empty_cache()
+    params = init_params(cfg, 0, DEV)
+    adamw = make_optimizer("adamw", 3e-4, state_dtype=cfg.state_dtype)
+    state = adamw.init(params)
+    grads = tree_map(lambda p: randn(rng, p.shape, p.dtype, 1e-3), params)
+    adamw_ms = time_ms(lambda: adamw.update(grads, state, params, 0), 3)
+    del params, state, grads
+    torch.cuda.empty_cache()
+    emit("train_opt", arch=cfg.name, layers=cfg.n_layers, batch=TRAIN_BATCH, seq=SEQ,
+         steps=OPT_STEPS, adamw_update_ms=adamw_ms,
+         optimizers={name: {key: r[key] for key in (
+             "losses", "grad_norms", "step_s", "step_s_median_after_first", "tokens_per_s",
+             "peak_memory_bytes", "update_ms", "state_bytes", "launches_per_step",
+             "checkpoint_bitexact")} for name, r in out.items()})
+    return launches
 
 
 def norm_backward_ops(prof) -> tuple[int, list]:
@@ -1527,6 +1683,12 @@ def by_group(rows) -> dict[str, float]:
     return {g: round(ms, 2) for g, ms in out.items()}
 
 
+#: CUDA runtime calls that hold the host (a synchronise, a copy from pageable
+#: memory, the allocator growing), counted in a profiled step
+HOST_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpyAsync", "cudaMalloc", "cudaFree")
+
+
 def profile_step(tr, params, opt_state, phase: str, per_step: dict, batch: int,
                  step: int) -> None:
     """One more training step under torch.profiler: device time by kernel.
@@ -1553,8 +1715,10 @@ def profile_step(tr, params, opt_state, phase: str, per_step: dict, batch: int,
             f"{phase} profile: {bwd_kernels} rmsnorm_bwd device kernels and {nodes} "
             f"RMSNormBackward nodes (expected {2 * per_step['rmsnorm_bwd']} and "
             f"{per_step['rmsnorm_bwd']}); operators of the plain backward beneath them: {plain}")
+    host = {e.key: {"calls": e.count, "host_ms": round(e.cpu_time_total / 1e3, 3)}
+            for e in prof.key_averages() if e.key in HOST_CALLS}
     emit("profile", of=phase, step_wall_ms=wall * 1e3, device_busy_ms=total,
-         by_group_ms=by_group(rows),
+         by_group_ms=by_group(rows), runtime_calls=host,
          norm_backward={"nodes": nodes, "device_kernels": bwd_kernels, "operators_below": below},
          top=[{"ms": round(ms, 3), "calls": n, "kernel": key[:90]}
               for ms, n, key in rows[:16]])
@@ -1989,18 +2153,58 @@ def phase_parity_moe() -> None:
          models={cfg.name: serve_parity(cfg)})
 
 
+#: parity_opt: the optimizers on the card vs on the CPU, each leaf within this
+#: share of its largest entry (fp32 products and reductions in other orders)
+OPT_PARITY_TOL = 1e-6
+
+
+def phase_parity_opt() -> None:
+    """A small fp32 gemma3 (8 layers: GaLore at rank 4 projects the table and
+    the remainder's matrices): 3 updates of each of ``OPTIMIZERS`` with the
+    same gradients on CUDA tensors and on CPU tensors (GaLore's ``P`` is
+    drawn on the CPU for both); parameters and states leaf by leaf within
+    ``OPT_PARITY_TOL`` of the leaf's largest entry."""
+    cfg = replace(smoke_config("gemma3-1b"), n_layers=8, param_dtype="float32",
+                  compute_dtype="float32")
+    base = tree_map(lambda t: t.float(), init_params(cfg, 0, "cpu"))
+    rng = np.random.default_rng(5)
+    grads = [tree_map(lambda p: torch.from_numpy(
+        rng.standard_normal(tuple(p.shape)).astype(np.float32) * 0.1), base) for _ in range(3)]
+    out = {}
+    for name in OPTIMIZERS:
+        kw = {"rank": 4} if name == "galore_adamw" else {}
+        trees = {}
+        for dev in (DEV, "cpu"):
+            params = tree_map(lambda t: t.clone().to(dev), base)
+            opt = make_optimizer(name, 1e-2, **kw)
+            state = opt.init(params)
+            for step, g in enumerate(grads):
+                params, state = opt.update(tree_map(lambda t: t.to(dev), g), state, params, step)
+            trees[dev] = tree_flatten_with_path({"params": params, "opt": state})
+        cuda, cpu = trees[DEV], trees["cpu"]
+        err = max((cuda[k].cpu().float() - cpu[k].float()).abs().max().item()
+                  / max(cpu[k].float().abs().max().item(), 1e-30) for k in cpu)
+        out[name] = {"leaves": len(cpu), "projected": sum(k.endswith("/P") for k in cpu),
+                     "max_err_over_leaf_max": err}
+    emit("parity_opt", config=cfg.name, layers=cfg.n_layers, updates=len(grads),
+         tol=OPT_PARITY_TOL, optimizers=out)
+    if max(o["max_err_over_leaf_max"] for o in out.values()) > OPT_PARITY_TOL:
+        raise AssertionError(f"parity_opt: the card != the CPU: {out}")
+
+
 # ---------------------------------------------------------------------------
 
-PHASES = ("env", "build", "kernels", "train", "train_ssm", "train_mla", "train_moe", "serve",
-          "parity", "parity_ssm", "parity_serve", "parity_moe")
+PHASES = ("env", "build", "kernels", "train", "train_ssm", "train_mla", "train_moe", "remat",
+          "train_opt", "serve", "parity", "parity_ssm", "parity_serve", "parity_moe",
+          "parity_opt")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="after each train phase, profile one more step; after each "
-                         "model's serve run, eight more decode calls")
+                    help="after each train phase (and remat's full and dots), profile one more "
+                         "step; after each model's serve run, eight more decode calls")
     args = ap.parse_args()
     phases = args.phases.split(",")
     t0 = time.time()
@@ -2053,6 +2257,12 @@ def main() -> None:
                                      "AdamW state of 16 layers, ≈ 83 GB, do not fit the card)")
         torch.cuda.empty_cache()
         lap("train_moe")
+    if "remat" in phases:
+        launches.update(phase_remat(gemma, args.profile))
+        lap("remat")
+    if "train_opt" in phases:
+        launches.update(phase_train_opt(gemma))
+        lap("train_opt")
     if "serve" in phases:
         launches.update(phase_serve((gemma, mamba, mla, olmoe), args.profile))
         lap("serve")
@@ -2068,6 +2278,9 @@ def main() -> None:
     if "parity_moe" in phases:
         phase_parity_moe()
         lap("parity_moe")
+    if "parity_opt" in phases:
+        phase_parity_opt()
+        lap("parity_opt")
 
     emit("done", phases=phases, seconds=round(time.time() - t0, 1), phase_seconds=seconds)
     if timed is not None and {"train", "train_ssm"} <= set(launches):

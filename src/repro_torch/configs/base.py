@@ -80,7 +80,7 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     state_dtype: str = "float32"     # optimizer states (bf16 for ≥100B archs)
-    remat: str = "dots"              # "none" = keep all; else recompute the period
+    remat: str = "dots"              # none | full | dots | dots_no_batch | save:a,b
     use_flash: bool = False          # hand-written flash-attention kernels
     attn_chunked: bool = False       # online-softmax attention over key chunks
     attn_chunk: int = 1024

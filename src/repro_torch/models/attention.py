@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from ..core.remat_policy import checkpoint_name
 from ..kernels.ref import NEG_INF
 from .layers import PSpec, apply_rope, norm
 
@@ -39,6 +40,7 @@ def _qkv(p, x, cfg, positions):
     v = (x @ p["wv"]).reshape(B, S, Kv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = checkpoint_name(q, "qkv")
     return q, k, v
 
 
@@ -77,7 +79,8 @@ def gqa_attention(p, x, cfg, positions, window: int | None = None):
         probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
         ctx = torch.einsum("bkgst,btkd->bskgd", probs, v)
 
-    return ctx.reshape(B, S, H * hd) @ p["wo"]
+    ctx = checkpoint_name(ctx.reshape(B, S, H * hd), "attn_out")
+    return ctx @ p["wo"]
 
 
 def _chunked_attention(q, k, v, chunk: int, window: int | None):
@@ -212,6 +215,7 @@ def mla_attention(p, x, cfg, positions):
     scores = torch.where(mask[None, None], scores, NEG_INF)
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
     ctx = torch.einsum("bhst,bthd->bshd", probs, v).reshape(B, S, H * m.v_head_dim)
+    ctx = checkpoint_name(ctx, "attn_out")
     return ctx @ p["wo"]
 
 

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device, torch_dtype
+from ..core.remat_policy import checkpoint_name
 from ..kernels import ops
 
 
@@ -99,11 +100,24 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+_FREQS: dict = {}
+
+
+def _device_freqs(hd: int, theta: float, device) -> torch.Tensor:
+    """``rope_freqs`` in fp32 on ``device``, copied there once per (hd, theta,
+    device): a copy from pageable host memory synchronises the stream, and
+    RoPE runs twice a layer in every forward, recompute and decode step."""
+    key = (hd, float(theta), torch.device(device))
+    if key not in _FREQS:
+        with torch.inference_mode(False):   # usable outside inference mode too
+            _FREQS[key] = torch.from_numpy(rope_freqs(hd, theta).astype(np.float32)).to(device)
+    return _FREQS[key]
+
+
 def apply_rope(x, positions, theta: float = 10000.0):
     """x: (..., S, H, hd); positions: (..., S) int32.  Split-half rotation
     with fp32 angles."""
-    hd = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(hd, theta).astype(np.float32)).to(x.device)
+    freqs = _device_freqs(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs            # (..., S, hd/2)
     angles = angles[..., None, :]                            # (..., S, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
@@ -149,4 +163,5 @@ def mlp_apply(p: dict, x, cfg):
         h = F.gelu(h, approximate="tanh")
     elif cfg.mlp == "squared_relu":
         h = torch.square(F.relu(h))
+    h = checkpoint_name(h, "mlp_hidden")
     return h @ p["wo"]

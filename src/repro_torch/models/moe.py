@@ -22,8 +22,7 @@ their atomics cannot reorder a sum.
 The experts' products are ``torch.bmm`` (cuBLAS) over an expert-major table
 (E, B·C, D) of the dispatched rows: the reference computes them with
 ``jnp.einsum`` outside any kernel, over (B, E, C, D).  Its ``shard``
-annotations and ``checkpoint_name(h, "moe_hidden")`` wait for the
-distribution and selective-remat slices.
+annotations wait for the distribution slice.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.remat_policy import checkpoint_name
 from .layers import PSpec
 
 
@@ -112,6 +112,7 @@ def _expert_ffn(p, disp, cfg):
         h = F.gelu(torch.bmm(disp, p["wg"]), approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
+    h = checkpoint_name(h, "moe_hidden")
     return torch.bmm(h, p["wo"])
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.remat_policy import checkpoint_name
 from ..kernels import ops
 from .layers import PSpec, norm
 
@@ -126,7 +127,7 @@ def ssd_apply(p: dict, x, cfg):
                            prev_states.to(xc.dtype))
     y = (y_intra + y_inter).reshape(B_, S, nh, hp)
     y = y + xh * p["D"][..., None].to(xh.dtype)
-    y = y.reshape(B_, S, di)
+    y = checkpoint_name(y.reshape(B_, S, di), "ssm_state")
 
     y = norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg)
     return y @ p["wo"]

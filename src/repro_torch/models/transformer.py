@@ -17,10 +17,14 @@ repeating block pattern (``cfg.scan_period()``) with parameters stacked along
 a leading dimension, plus a remainder for patterns that don't divide
 ``n_layers`` — but walks it with a Python loop instead of a scan.
 
-Activation checkpointing: ``cfg.remat == "none"`` keeps everything; any other
-policy recomputes the whole period body in the backward pass
-(``torch.utils.checkpoint``).  That is numerically identical to the
-reference's selective policies, which only choose what to keep.
+Activation checkpointing of each scanned period, chosen by ``cfg.remat``
+through ``core.remat_policy.resolve_remat`` as in the reference: ``"none"``
+(or ``None``) keeps everything, ``"full"`` recomputes the whole period in the
+backward, ``"dots"`` / ``"dots_no_batch"`` keep the matrix products' outputs
+and ``"save:a,b"`` the values tagged with those site names
+(``checkpoint_name``: ``attn_in``, ``qkv``, ``attn_out``, ``mlp_hidden``,
+``moe_hidden``, ``ssm_state``, ``block_out``); an unknown name raises.  A
+policy only chooses what is kept, so every policy computes the same values.
 
 Decode: ``cache_specs`` / ``init_cache`` lay the caches out like the
 parameters (``scan`` stacked, ``rem``); ``decode_step`` runs one token
@@ -32,9 +36,9 @@ from __future__ import annotations
 import operator
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device, torch_dtype
+from ..core.remat_policy import checkpoint_name, checkpointed, resolve_remat
 from .attention import (attn_decode_step, attn_specs, gqa_attention,
                         mla_attention, mla_decode_step, mla_specs)
 from .layers import (PSpec, embed_lookup, map_specs, materialize, mlp_apply,
@@ -105,7 +109,7 @@ def init_params(cfg, seed: int, device="cuda"):
 
 def _apply_layer(prm, x, cfg, spec, positions):
     """One block: (x, the MoE layer's aux loss, or a zero)."""
-    h = norm(x, prm["ln1"]["scale"], cfg)
+    h = checkpoint_name(norm(x, prm["ln1"]["scale"], cfg), "attn_in")
     if spec.mixer == "attn":
         mix = gqa_attention(prm["attn"], h, cfg, positions, window=None)
     elif spec.mixer == "local":
@@ -123,7 +127,7 @@ def _apply_layer(prm, x, cfg, spec, positions):
     elif cfg.mlp != "none":
         h2 = norm(x, prm["ln2"]["scale"], cfg)
         x = x + mlp_apply(prm["mlp"], h2, cfg)
-    return x, aux
+    return checkpoint_name(x, "block_out"), aux
 
 
 def _unstack(tree, n: int) -> list:
@@ -164,15 +168,13 @@ def forward_hidden(params, cfg, inputs, positions=None):
             aux = aux + a
         return x, aux
 
-    use_remat = cfg.remat != "none" and torch.is_grad_enabled()
+    use_remat, policy = resolve_remat(cfg.remat)
+    if use_remat and torch.is_grad_enabled():
+        period_body = checkpointed(period_body, policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if n_full > 0:
         for per_params in _unstack(params["scan"], n_full):
-            if use_remat:
-                x, a = checkpoint(period_body, x, per_params, use_reentrant=False,
-                                  preserve_rng_state=False)
-            else:
-                x, a = period_body(x, per_params)
+            x, a = period_body(x, per_params)
             aux = aux + a
     for j, prm in sorted(params.get("rem", {}).items(), key=lambda kv: int(kv[0])):
         x, a = _apply_layer(prm, x, cfg, specs[n_full * period + int(j)], positions)

@@ -229,7 +229,7 @@ def test_lm_loss_and_grads(route):
 def test_five_train_steps_match_reference():
     """From the same weights and batches, five whole steps (forward through
     the kernel route, backward, clipping, AdamW) in both packages, fp32, with
-    remat (the port recomputes the whole period).  Loss and grad norm per
+    remat (``dots``: the products' outputs kept).  Loss and grad norm per
     step and final parameters to 1e-4."""
     cfg, ref_cfg = small(use_flash=True, remat="dots", **FP32)
     shape = configs.ShapeConfig("t", seq_len=64, global_batch=2, kind="train")

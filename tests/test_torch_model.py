@@ -102,6 +102,25 @@ def test_apply_rope(theta, hd):
     assert torch.equal(zero, tx)
 
 
+def test_rope_frequencies_are_copied_to_the_device_once():
+    """``apply_rope`` keeps its fp32 frequencies on the tensor's device after
+    the first call (a copy from pageable memory synchronises a CUDA stream),
+    also when that call ran under inference mode: the held tensor is an
+    ordinary one, so a training forward after serving can still use it."""
+    hd, theta = 8, 500.0
+    layers._FREQS.pop((hd, theta, torch.device("cpu")), None)
+    x, pos = torch.randn(1, 4, 2, hd), torch.arange(4, dtype=torch.int32)[None]
+    with torch.inference_mode():
+        first = layers.apply_rope(x, pos, theta)
+    held = layers._device_freqs(hd, theta, "cpu")
+    assert not held.is_inference() and layers._device_freqs(hd, theta, x.device) is held
+    np.testing.assert_array_equal(held.numpy(), layers.rope_freqs(hd, theta).astype(np.float32))
+    xg = x.clone().requires_grad_(True)
+    out = layers.apply_rope(xg, pos, theta)
+    out.sum().backward()
+    assert torch.equal(out.detach(), first) and xg.grad is not None
+
+
 @pytest.mark.parametrize("kind", ["swiglu", "geglu", "gelu", "squared_relu"])
 def test_mlp_apply(kind):
     cfg, ref_cfg = small("phi3-medium-14b", mlp=kind)

@@ -127,13 +127,6 @@ def test_adamw_update_is_one_multi_tensor_call(arch, monkeypatch):
             assert torch.equal(tree_flatten_with_path(a)[key], b), key
 
 
-@pytest.mark.parametrize("name", ["sgd_momentum", "adafactor", "galore_adamw"])
-def test_other_optimizers_wait_for_their_slice(name):
-    assert name in ref_optim.OPTIMIZERS
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        optim.make_optimizer(name)
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_clip_by_global_norm(dtype):
     rng = np.random.default_rng(1)
