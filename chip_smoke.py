@@ -68,6 +68,19 @@ Phases, each printing one JSON line (or a few):
   parity_opt  small fp32 gemma3: 3 updates of sgd_momentum, adafactor and
               galore_adamw on the card == on the CPU, each leaf to 1e-6 of
               its largest entry
+  train_mesh  the trainer's mesh path (DTensors, every kernel through its
+              local_map route) on a one-rank NCCL group and a (1, 1)
+              ('data', 'model') mesh: gemma3-1b as in train, each step's
+              loss and grad norm equal to train's bit for bit, launches as
+              derived, checkpoint bit for bit, step time, tokens/s, peak
+              memory and aten operators a step beside train's; mamba2-1.3b
+              at full width and 4 layers (ssd_chunk's mesh route); a planted
+              fault (the mesh route's norm through its plain version) that
+              the launch check must catch
+  dryrun      python -m repro_torch.launch.dryrun for gemma3-1b train_4k and
+              mamba2-1.3b decode_32k on (16, 16) and (2, 16, 16): a fake
+              process group of 512 ranks and meta local shards; FLOPs a
+              device and global, collectives by kind, bytes, seconds
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 non-zero and the last line is not printed.  There is no CPU fallback.
@@ -93,6 +106,7 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -117,6 +131,7 @@ from repro_torch.models import attention, moe, ssm, transformer  # noqa: E402
 from repro_torch.models.transformer import init_cache, init_params, logits_fn  # noqa: E402
 from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.training.loss import lm_loss  # noqa: E402
+from repro_torch.distributed.sharding import whole  # noqa: E402
 from repro_torch.training.train_step import make_serve_step  # noqa: E402
 
 DEV = "cuda"
@@ -1412,7 +1427,7 @@ def reset_launches() -> None:
 
 
 def fit_and_check(cfg, batch: int, steps: int, optimizer: str = "adamw",
-                  ckpt_dir: str | None = None) -> tuple[dict, Trainer, dict]:
+                  ckpt_dir: str | None = None, mesh=None) -> tuple[dict, Trainer, dict]:
     """``steps`` steps of ``Trainer.fit`` at ``batch`` × 4096 tokens with
     ``optimizer`` (AdamW on its warm-up schedule, the others at a constant
     lr, as the Trainer passes them): finite losses and grad norms, the first
@@ -1420,10 +1435,11 @@ def fit_and_check(cfg, batch: int, steps: int, optimizer: str = "adamw",
     for bit when ``ckpt_dir`` is given; with MoE layers, the first layer's
     aux loss at step 0 inside ``MOE_AUX_RANGE`` and the layers' terms summing
     to the logged aux loss (each recorded as a device tensor, no
-    synchronisation).  Returns (the results, the trainer, its launches)."""
+    synchronisation).  With ``mesh``, through ``Trainer(mesh=...)``.
+    Returns (the results, the trainer, its launches)."""
     torch.cuda.reset_peak_memory_stats()
     tr = Trainer(cfg, get_shape("train_4k"), optimizer=optimizer, device=DEV,
-                 ckpt_dir=ckpt_dir, ckpt_every=steps)
+                 ckpt_dir=ckpt_dir, ckpt_every=steps, mesh=mesh)
     terms = []
     aux_loss = moe._aux_loss
 
@@ -1472,7 +1488,7 @@ def fit_and_check(cfg, batch: int, steps: int, optimizer: str = "adamw",
         loaded, manifest = load_checkpoint(ckpt_dir, tmpl, device="cpu")
         for (key, a), b in zip(tree_flatten_with_path(tmpl).items(),
                                tree_flatten_with_path(loaded).values(), strict=True):
-            if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            if a.dtype != b.dtype or not torch.equal(whole(a).cpu(), whole(b).cpu()):
                 raise AssertionError(f"checkpoint leaf {key} differs from the live state")
         del loaded
 
@@ -1492,14 +1508,19 @@ def fit_and_check(cfg, batch: int, steps: int, optimizer: str = "adamw",
     return res, tr, launches
 
 
+#: each train phase's results, for ``train_mesh`` to hold its steps against
+TRAIN_RESULTS: dict = {}
+
+
 def phase_train(cfg, phase: str, profile: bool, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
-                reduced=None) -> dict:
+                reduced=None, mesh=None) -> dict:
     """``fit_and_check`` with a checkpoint written to ``$TMPDIR`` and read
     back; ``reduced`` names what was cut from the configuration.  Returns the
     launches."""
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        res, tr, launches = fit_and_check(cfg, batch, steps, ckpt_dir=ckpt_dir)
+        res, tr, launches = fit_and_check(cfg, batch, steps, ckpt_dir=ckpt_dir, mesh=mesh)
+        TRAIN_RESULTS[phase] = res
         emit(phase, **({"reduced": reduced} if reduced else {}), **res)
         if profile:
             profile_step(tr, *tr._last_state, phase, res["launches_per_step"], batch, steps)
@@ -2193,10 +2214,152 @@ def phase_parity_opt() -> None:
 
 
 # ---------------------------------------------------------------------------
+# the mesh path: DTensors on a one-rank mesh, and the dry-run
+
+#: train_mesh: mamba2-1.3b at full width, 4 of 48 layers, 2 x 4096, 2 steps
+MESH_SSM_LAYERS, MESH_SSM_BATCH, MESH_SSM_STEPS = 4, 2, 2
+#: dryrun: the cells the phase lowers on both production meshes
+DRYRUN_CELLS = (("gemma3-1b", "train_4k"), ("mamba2-1.3b", "decode_32k"))
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the aten operators dispatched at the level of the tensors the
+    step holds: on the mesh, DTensor operators (each one's sharding
+    propagation and the local operator it issues are DTensor's host cost)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def ops_a_step(tr, params, opt_state, batch: int) -> int:
+    """Aten operators of one more training step of ``tr``."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed.sharding import use_mesh
+    data = tr._shard_batch(make_batch(tr.cfg, tr.shape, 0, tr.seed, batch, device=DEV))
+    with use_mesh(tr.mesh), OpCounter() as count:
+        tr.step_fn(params, opt_state, data, 0)
+    torch.cuda.synchronize()
+    return count.n
+
+
+def phase_train_mesh(gemma, mamba) -> dict:
+    """The trainer's mesh path on a one-rank NCCL group and a (1, 1)
+    ('data', 'model') mesh on the card: gemma3-1b as in ``train`` (the same
+    seed), each step's loss and grad norm equal to ``train``'s bit for bit,
+    launches as derived, the checkpoint bit for bit; step time, tokens/s and
+    peak memory beside ``train``'s, and the aten operators of one step on
+    and off the mesh.  Then mamba2-1.3b at full width and 4 layers, so that
+    ssd_chunk runs through its mesh route, and a planted fault: the mesh
+    route's rmsnorm taken through its plain version must fail the launch
+    check.  Returns the launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    if "train" not in TRAIN_RESULTS:
+        raise AssertionError("train_mesh holds its steps against the train phase's: run both")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        out = {}
+        launches = phase_train(gemma, "train_mesh", False, mesh=mesh)
+        got, want = TRAIN_RESULTS["train_mesh"], TRAIN_RESULTS["train"]
+        same = {k: got[k] == want[k] for k in ("losses", "grad_norms", "launches")}
+        # aten operators of one step, on no mesh and on the mesh
+        plain = Trainer(gemma, get_shape("train_4k"), device=DEV)
+        ops_plain = ops_a_step(plain, *plain.init_state(), TRAIN_BATCH)
+        del plain
+        torch.cuda.empty_cache()
+        meshed = Trainer(gemma, get_shape("train_4k"), device=DEV, mesh=mesh)
+        ops_mesh = ops_a_step(meshed, *meshed.init_state(), TRAIN_BATCH)
+        del meshed
+        torch.cuda.empty_cache()
+        out["gemma3"] = {"equal_to_train": same, "step_s": got["step_s_median_after_first"],
+                         "train_step_s": want["step_s_median_after_first"],
+                         "tokens_per_s": got["tokens_per_s"],
+                         "train_tokens_per_s": want["tokens_per_s"],
+                         "peak_memory_bytes": got["peak_memory_bytes"],
+                         "train_peak_memory_bytes": want["peak_memory_bytes"],
+                         "aten_ops_a_step": ops_mesh, "train_aten_ops_a_step": ops_plain}
+        emit("train_mesh_vs_train", **out["gemma3"])
+        if not all(same.values()):
+            raise AssertionError(f"train_mesh differs from train: {same}; losses "
+                                 f"{got['losses']} vs {want['losses']}, grad norms "
+                                 f"{got['grad_norms']} vs {want['grad_norms']}")
+        ssm = replace(mamba, n_layers=MESH_SSM_LAYERS)
+        ssm_launches = phase_train(
+            ssm, "train_mesh_ssm", False, batch=MESH_SSM_BATCH, steps=MESH_SSM_STEPS,
+            reduced=f"n_layers 48 -> {MESH_SSM_LAYERS}, batch {MESH_SSM_BATCH}, "
+                    f"{MESH_SSM_STEPS} steps (the mesh route's ssd_chunk, not a second "
+                    "full train_ssm)", mesh=mesh)
+        # planted fault: the mesh route's norm through the plain version
+        plain_norm = type("PlainNorm", (), {"apply": staticmethod(rn.rmsnorm_plain)})
+        try:
+            with patched(ops, "RMSNorm", plain_norm):
+                fit_and_check(ssm, MESH_SSM_BATCH, 1, mesh=mesh)
+        except AssertionError as e:
+            if "launch counts" not in str(e):
+                raise
+            emit("train_mesh_fault", caught=True, what="rmsnorm's mesh route taken "
+                 "through its plain version", message=str(e)[:300])
+        else:
+            raise AssertionError("train_mesh: the planted fault (plain rmsnorm on the mesh "
+                                 "route) passed the launch check")
+        torch.cuda.empty_cache()
+        return {"train_mesh": launches, "train_mesh_ssm": ssm_launches}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dryrun() -> None:
+    """``python -m repro_torch.launch.dryrun`` for each of ``DRYRUN_CELLS`` on
+    both production meshes (a fake process group of 512 ranks, ``meta`` local
+    shards: no device): per cell the FLOPs a device and global, the
+    collectives by kind, the argument bytes a device and the wall seconds.
+    A non-zero exit fails the phase, and so does a cell whose global FLOPs
+    are not positive or exceed its ranks' FLOPs together."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    try:
+        cells = {}
+        for arch, shape in DRYRUN_CELLS:
+            t0 = time.time()
+            proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                   "--arch", arch, "--shape", shape, "--mesh", "both",
+                                   "--out", out_dir], env=env, capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode:
+                raise AssertionError(f"dryrun {arch} {shape}: exit {proc.returncode}\n"
+                                     f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+            for name in sorted(os.listdir(out_dir)):
+                with open(os.path.join(out_dir, name)) as f:
+                    row = json.load(f)
+                # flops_global counts the step once for the mesh; each rank's
+                # flops is its share or more (replicated work on every rank)
+                ranks = math.prod(row["mesh_shape"])
+                if not 0 < row["flops_global"] <= row["flops"] * ranks:
+                    raise AssertionError(f"dryrun {name}: flops {row['flops']} a device on "
+                                         f"{ranks} ranks, flops_global {row['flops_global']}")
+                cells[name.removesuffix(".json")] = {
+                    k: row[k] for k in ("flops", "flops_global", "n_collectives",
+                                        "collective_bytes", "argument_bytes", "lower_s",
+                                        "wall_s")}
+            cells[f"{arch}__{shape}__process_s"] = time.time() - t0
+        emit("dryrun", meshes={"pod16x16": [16, 16], "pod2x16x16": [2, 16, 16]},
+             process_group="fake, 512 ranks; meta local shards", cells=cells)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("env", "build", "kernels", "train", "train_ssm", "train_mla", "train_moe", "remat",
-          "train_opt", "serve", "parity", "parity_ssm", "parity_serve", "parity_moe",
-          "parity_opt")
+          "train_opt", "train_mesh", "serve", "parity", "parity_ssm", "parity_serve",
+          "parity_moe", "parity_opt", "dryrun")
 
 
 def main() -> None:
@@ -2263,6 +2426,9 @@ def main() -> None:
     if "train_opt" in phases:
         launches.update(phase_train_opt(gemma))
         lap("train_opt")
+    if "train_mesh" in phases:
+        launches.update(phase_train_mesh(gemma, mamba))
+        lap("train_mesh")
     if "serve" in phases:
         launches.update(phase_serve((gemma, mamba, mla, olmoe), args.profile))
         lap("serve")
@@ -2281,6 +2447,9 @@ def main() -> None:
     if "parity_opt" in phases:
         phase_parity_opt()
         lap("parity_opt")
+    if "dryrun" in phases:
+        phase_dryrun()
+        lap("dryrun")
 
     emit("done", phases=phases, seconds=round(time.time() - t0, 1), phase_seconds=seconds)
     if timed is not None and {"train", "train_ssm"} <= set(launches):

@@ -9,6 +9,12 @@ The layout, the key scheme (tree path joined by ``/``, stored with ``|``) and
 the dtype names in the manifest are the JAX package's, and bfloat16 is stored
 as its 16 raw bits, so a checkpoint written by either package loads in the
 other.  Arrays are stored whole, by logical path.
+
+Elastic restart: a DTensor leaf is saved unsharded (gathered on the main
+thread, in the tree's order on every rank, and written by rank 0 only), and
+``load_checkpoint`` reshards each leaf onto the template leaf's mesh and
+placements; so a checkpoint written on one mesh restores onto any other, or
+onto none, and its files are the same as an unsharded run's.
 """
 
 from __future__ import annotations
@@ -22,15 +28,23 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .. import resolve_device
 from ..convert import tree_flatten_with_path, tree_map
+from ..distributed.sharding import distribute, whole
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0, or the only one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """(array as stored, dtype name): bfloat16 becomes its uint16 bits."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
+        t = whole(leaf).detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         return t.numpy(), str(t.dtype).removeprefix("torch.")
@@ -48,15 +62,19 @@ def _to_tensor(a: np.ndarray, dtype_name: str | None, device) -> torch.Tensor:
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, extra: dict | None = None
                     ) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
-    tmp = os.path.join(ckpt_dir, f".tmp_{step}")
+    """Commit ``tree`` as ``step``.  Every rank gathers its DTensor leaves;
+    only rank 0 writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
     store, dtypes = {}, {}
     for key, leaf in tree_flatten_with_path(tree).items():
         store[key.replace("/", "|")], dtypes[key] = _to_host(leaf)
+    if not _writes():
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tmp = os.path.join(ckpt_dir, f".tmp_{step}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
     np.savez(os.path.join(tmp, "arrays.npz"), **store)
     manifest = {"step": step, "time": time.time(), "dtypes": dtypes,
                 "extra": extra or {}}
@@ -89,7 +107,9 @@ def latest_step(ckpt_dir: str) -> int | None:
 def load_checkpoint(ckpt_dir: str, template, step: int | None = None,
                     device="cuda") -> tuple:
     """Returns (tree of tensors on ``device``, manifest).  ``template`` gives
-    the tree structure and the shape each leaf must have."""
+    the tree structure and the shape each leaf must have; a DTensor leaf of
+    it gives the mesh and placements its leaf is resharded onto (on its own
+    device)."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -110,6 +130,9 @@ def load_checkpoint(ckpt_dir: str, template, step: int | None = None,
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"{tuple(leaf.shape)}")
+        if isinstance(leaf, DTensor):
+            full = _to_tensor(arr, manifest["dtypes"].get(key), leaf.to_local().device)
+            return distribute(full, leaf.device_mesh, leaf.placements)
         return _to_tensor(arr, manifest["dtypes"].get(key), dev)
 
     return tree_map(load, template), manifest
@@ -125,7 +148,9 @@ def prune_checkpoints(ckpt_dir: str, keep: int = 3) -> None:
 class AsyncCheckpointer:
     """Background writer: ``save`` snapshots to host memory synchronously
     and commits to disk off-thread — training never blocks on I/O.  The
-    snapshot is a copy, so the in-place optimizer cannot change it."""
+    snapshot is a copy, so the in-place optimizer cannot change it.  DTensor
+    leaves are gathered by the snapshot, on the calling thread (a collective
+    never runs on the writer's thread); only rank 0 queues the write."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.dir = ckpt_dir
@@ -153,8 +178,9 @@ class AsyncCheckpointer:
         if self._err:
             raise self._err
         host_tree = tree_map(                               # snapshot now
-            lambda t: t.detach().to("cpu", copy=True), tree)
-        self._q.put((step, host_tree, extra))
+            lambda t: whole(t).detach().to("cpu", copy=True), tree)
+        if _writes():
+            self._q.put((step, host_tree, extra))
 
     def wait(self) -> None:
         self._q.join()

@@ -17,6 +17,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig, ShapeConfig
+from ..distributed.sharding import ax
 
 
 def _philox_u32(ctr: np.ndarray, key: int) -> np.ndarray:
@@ -67,6 +68,31 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, step: int,
         inputs = torch.from_numpy(make_embeddings(cfg, B, S, step, seed)
                                   ).to(torch.bfloat16)
     return {"inputs": inputs.to(dev), "labels": toks.to(dev)}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """``meta`` stand-ins for the dry-run (no allocation)."""
+    B, S = shape.global_batch, shape.seq_len
+    S_in = 1 if shape.kind == "decode" else S
+    if cfg.input_mode == "tokens":
+        inputs = torch.empty((B, S_in), dtype=torch.int32, device="meta")
+    else:
+        inputs = torch.empty((B, S_in, cfg.d_model), dtype=torch.bfloat16, device="meta")
+    out = {"inputs": inputs}
+    if shape.kind == "train":
+        out["labels"] = torch.empty((B, S), dtype=torch.int32, device="meta")
+    return out
+
+
+def input_axes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    if cfg.input_mode == "tokens":
+        in_ax = ax("batch", "seq")
+    else:
+        in_ax = ax("batch", "seq", "embed_act")
+    out = {"inputs": in_ax}
+    if shape.kind == "train":
+        out["labels"] = ax("batch", "seq")
+    return out
 
 
 class SyntheticDataset:

@@ -35,6 +35,11 @@ ENTRY_POINTS = {**{name: name for name in SOURCES}, "rmsnorm_bwd": "rmsnorm"}
 #: launches per entry point, counted by each wrapper where it launches its
 #: kernel and nowhere else
 LAUNCHES = dict.fromkeys(ENTRY_POINTS, 0)
+#: devices whose tensors take a kernel's plain version: the CPU, and ``meta``
+#: (shapes and dtypes only: it holds no values, so nothing is computed and no
+#: fallback can hide; the dry-run's FLOP counters see the plain version's
+#: operators)
+PLAIN_DEVICES = ("cpu", "meta")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: filled by the build: seconds, and ptxas' per-kernel resource lines

@@ -19,7 +19,7 @@ import functools
 
 import torch
 
-from .build import launch, load_library
+from .build import PLAIN_DEVICES, launch, load_library
 from .ref import rmsnorm_ref
 
 #: d must be a multiple of this (one 16-byte bf16 load) and at most MAX_D
@@ -122,15 +122,17 @@ def rmsnorm_bwd_cuda(x, scale, dy, eps: float = 1e-6):
 
 
 def rmsnorm_fwd(x, scale, eps: float = 1e-6):
-    """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
-    if x.device.type == "cpu":
+    """The plain version for a CPU (or ``meta``) tensor, the kernel for a
+    CUDA tensor."""
+    if x.device.type in PLAIN_DEVICES:
         return rmsnorm_plain(x, scale, eps)
     return rmsnorm_cuda(x, scale, eps)
 
 
 def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
-    """The plain backward for a CPU tensor, the kernel for a CUDA tensor."""
-    if x.device.type == "cpu":
+    """The plain backward for a CPU (or ``meta``) tensor, the kernel for a
+    CUDA tensor."""
+    if x.device.type in PLAIN_DEVICES:
         return rmsnorm_bwd_plain(x, scale, dy, eps)
     return rmsnorm_bwd_cuda(x, scale, dy, eps)
 

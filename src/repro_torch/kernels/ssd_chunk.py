@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from .build import launch
+from .build import PLAIN_DEVICES, launch
 from .ref import ssd_intra
 
 #: head dims, state sizes and chunk lengths the kernel is instantiated for
@@ -96,8 +96,9 @@ def ssd_chunk_cuda(x, dt, b, c, a):
 
 
 def ssd_chunk_fwd(x, dt, b, c, a):
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
-    if x.device.type == "cpu":
+    """The plain version for CPU (or ``meta``) tensors, the kernel for CUDA
+    tensors."""
+    if x.device.type in PLAIN_DEVICES:
         return ssd_chunk_plain(x, dt, b, c, a)
     return ssd_chunk_cuda(x, dt, b, c, a)
 

@@ -7,7 +7,9 @@ The decode steps write the new token's keys into the cache **in place** and
 return the same tensors.  ``pos`` is a Python ``int``, the number of tokens
 already in the cache; a write past the cache's end raises (the reference's
 ``dynamic_update_slice`` clamps it onto the last slot).  ``local`` layers
-keep a ring of ``T`` slots and write slot ``pos % T``.
+keep a ring of ``T`` slots and write slot ``pos % T``.  On a mesh whose
+rules shard the cache's ``kv_seq`` dim, the write goes through ``local_map``:
+only the rank that holds the slot writes it (``write_slot``).
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..core.remat_policy import checkpoint_name
+from ..distributed.sharding import block_index, grad_like_value, local_map, shard, unflatten
 from ..kernels.ref import NEG_INF
 from .layers import PSpec, apply_rope, norm
 
@@ -33,13 +37,15 @@ def attn_specs(cfg) -> dict:
 
 
 def _qkv(p, x, cfg, positions):
-    B, S, _ = x.shape
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, Kv, hd)
-    v = (x @ p["wv"]).reshape(B, S, Kv, hd)
+    q = unflatten(x @ p["wq"], -1, (H, hd))
+    k = unflatten(x @ p["wk"], -1, (Kv, hd))      # kv_heads = 3 on 'model' = 2: gathered
+    v = unflatten(x @ p["wv"], -1, (Kv, hd))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     q = checkpoint_name(q, "qkv")
     return q, k, v
 
@@ -66,12 +72,12 @@ def gqa_attention(p, x, cfg, positions, window: int | None = None):
         from ..kernels.ops import flash_attention
         ctx = flash_attention(q, k, v, True, window)
     elif cfg.attn_chunked and S > cfg.attn_chunk:
-        ctx = _chunked_attention(q.reshape(B, S, Kv, G, hd), k, v,
+        ctx = _chunked_attention(unflatten(q, 2, (Kv, G)), k, v,
                                  cfg.attn_chunk, window)
     else:
         # scores are scaled after the product; probabilities are cast to the
         # activation dtype before they meet v
-        qg = q.reshape(B, S, Kv, G, hd)
+        qg = unflatten(q, 2, (Kv, G))
         scale = 1.0 / math.sqrt(hd)
         scores = torch.einsum("bskgd,btkd->bkgst", qg, k) * scale
         mask = _causal_mask(S, S, window, device=x.device)
@@ -79,8 +85,8 @@ def gqa_attention(p, x, cfg, positions, window: int | None = None):
         probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
         ctx = torch.einsum("bkgst,btkd->bskgd", probs, v)
 
-    ctx = checkpoint_name(ctx.reshape(B, S, H * hd), "attn_out")
-    return ctx @ p["wo"]
+    ctx = checkpoint_name(grad_like_value(ctx.reshape(B, S, H * hd)), "attn_out")
+    return shard(ctx @ p["wo"], "batch", "seq", "embed_act")
 
 
 def _chunked_attention(q, k, v, chunk: int, window: int | None):
@@ -126,6 +132,29 @@ def _cache_slot(pos: int, T: int, window: int | None) -> int:
     return pos
 
 
+def write_slot(cache, slot: int, value) -> None:
+    """``cache[:, slot] = value`` in place (cache (B,T,...), value (B,...)).
+    On a DTensor the value is brought to the cache's placements less its seq
+    dim, and each rank writes the slot only if its block of T holds it."""
+    if not isinstance(cache, DTensor):
+        cache[:, slot] = value.to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    v_pl = tuple(Replicate() if pl.is_shard(1) else
+                 (Shard(pl.dim - 1) if pl.is_shard() and pl.dim > 1 else pl)
+                 for pl in cache.placements)
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    lo_block = block_index(mesh, cache.placements, 1)
+
+    def body(c, v):
+        lo = lo_block * c.shape[1]
+        if lo <= slot < lo + c.shape[1]:
+            c[:, slot - lo] = v.to(c.dtype)
+
+    local_map(body, None, (tuple(cache.placements), v_pl), mesh)(cache, value)
+
+
 def _positions(x, pos: int):
     return torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
 
@@ -140,12 +169,12 @@ def attn_decode_step(p, x, k_cache, v_cache, pos: int, cfg, window: int | None =
     T = k_cache.shape[1]
     slot = _cache_slot(pos, T, window)
     q, k, v = _qkv(p, x, cfg, _positions(x, pos))
-    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    write_slot(k_cache, slot, k[:, 0])
+    write_slot(v_cache, slot, v[:, 0])
 
     # query heads grouped (Kv, G) as in the forward; scaled after the product
     scale = 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, Kv, G, hd)
+    qg = unflatten(q[:, 0], 1, (Kv, G))
     scores = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.to(q.dtype)) * scale
     if window is not None and pos >= T:
         valid = torch.ones(T, dtype=torch.bool, device=x.device)
@@ -183,7 +212,7 @@ def _mla_query(p, x, cfg, positions):
     m = cfg.mla
     B, S, _ = x.shape
     cq = norm(x @ p["wdq"], p["q_ln"], cfg)
-    q = (cq @ p["wuq"]).reshape(B, S, cfg.n_heads, m.qk_head_dim)
+    q = unflatten(cq @ p["wuq"], -1, (cfg.n_heads, m.qk_head_dim))
     q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -205,8 +234,8 @@ def mla_attention(p, x, cfg, positions):
     H = cfg.n_heads
     q_nope, q_rope = _mla_query(p, x, cfg, positions)
     ckv, k_rope = _mla_latent(p, x, cfg, positions)
-    k_nope = (ckv @ p["wun"]).reshape(B, S, H, m.qk_nope_dim)
-    v = (ckv @ p["wuv"]).reshape(B, S, H, m.v_head_dim)
+    k_nope = unflatten(ckv @ p["wun"], -1, (H, m.qk_nope_dim))
+    v = unflatten(ckv @ p["wuv"], -1, (H, m.v_head_dim))
 
     scale = 1.0 / math.sqrt(m.qk_head_dim)
     scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
@@ -215,8 +244,8 @@ def mla_attention(p, x, cfg, positions):
     scores = torch.where(mask[None, None], scores, NEG_INF)
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
     ctx = torch.einsum("bhst,bthd->bshd", probs, v).reshape(B, S, H * m.v_head_dim)
-    ctx = checkpoint_name(ctx, "attn_out")
-    return ctx @ p["wo"]
+    ctx = checkpoint_name(grad_like_value(ctx), "attn_out")
+    return shard(ctx @ p["wo"], "batch", "seq", "embed_act")
 
 
 def mla_decode_step(p, x, ckv_cache, kr_cache, pos: int, cfg):
@@ -232,11 +261,11 @@ def mla_decode_step(p, x, ckv_cache, kr_cache, pos: int, cfg):
     positions = _positions(x, pos)
     q_nope, q_rope = _mla_query(p, x, cfg, positions)
     ckv, k_rope = _mla_latent(p, x, cfg, positions)
-    ckv_cache[:, slot] = ckv[:, 0].to(ckv_cache.dtype)
-    kr_cache[:, slot] = k_rope[:, 0].to(kr_cache.dtype)
+    write_slot(ckv_cache, slot, ckv[:, 0])
+    write_slot(kr_cache, slot, k_rope[:, 0])
 
     # W_un absorbed into the query: q_lat (B,H,r)
-    wun = p["wun"].reshape(m.kv_lora_rank, H, m.qk_nope_dim)
+    wun = unflatten(p["wun"], -1, (H, m.qk_nope_dim))
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wun)
     scale = 1.0 / math.sqrt(m.qk_head_dim)
     scores = (torch.einsum("bhr,btr->bht", q_lat, ckv_cache.to(x.dtype))
@@ -245,6 +274,8 @@ def mla_decode_step(p, x, ckv_cache, kr_cache, pos: int, cfg):
     scores = torch.where(valid[None, None], scores, NEG_INF)
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
     ctx_lat = torch.einsum("bht,btr->bhr", probs, ckv_cache.to(x.dtype))
-    wuv = p["wuv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
-    ctx = torch.einsum("bhr,rhd->bhd", ctx_lat, wuv).reshape(B, 1, H * m.v_head_dim)
+    wuv = unflatten(p["wuv"], -1, (H, m.v_head_dim))
+    # heads that do not divide 'model' replicated before they are flattened
+    ctx = shard(torch.einsum("bhr,rhd->bhd", ctx_lat, wuv), "batch", "heads", None)
+    ctx = ctx.reshape(B, 1, H * m.v_head_dim)
     return ctx @ p["wo"], ckv_cache, kr_cache

@@ -3,8 +3,8 @@
 Parameters are plain nested dicts of tensors.  Every leaf is declared via
 ``PSpec`` (shape + logical axes + dtype + init), the same declaration the JAX
 package uses, so both packages build trees with identical keys and shapes.
-The logical axes are carried for the distribution slice; nothing reads them
-on a single device.
+The logical axes resolve through ``distributed.sharding`` to DTensor
+placements under a mesh (``axes_tree``); without a mesh nothing reads them.
 """
 
 from __future__ import annotations
@@ -15,9 +15,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from .. import resolve_device, torch_dtype
 from ..core.remat_policy import checkpoint_name
+from ..distributed.sharding import (P, ax, axis_sizes, block_index, current_mesh, local_map,
+                                    placements, prune_pspec, shard, take_in_block)
 from ..kernels import ops
 
 
@@ -61,6 +64,17 @@ def materialize(spec_tree, generator: torch.Generator, device="cuda"):
     return map_specs(make, spec_tree)
 
 
+def abstract(spec_tree):
+    """``meta`` tensors of each spec's shape and dtype (no allocation): the
+    dry-run's parameters and the trainer's shape templates."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype),
+                                           device="meta"), spec_tree)
+
+
+def axes_tree(spec_tree):
+    return map_specs(lambda s: ax(*s.axes), spec_tree)
+
+
 def stack_specs(spec_tree, n: int):
     """Add a leading scan-period dimension to every leaf."""
     return map_specs(
@@ -86,10 +100,26 @@ def rmsnorm(x, scale, eps: float = 1e-6):
 def norm(x, scale, cfg):
     """The model's RMSNorm: the hand-written kernel (``kernels.ops.rmsnorm``:
     fp32 product, one cast) with ``cfg.use_flash``, else ``rmsnorm`` (the
-    reference model's rounding order)."""
+    reference model's rounding order).  The kernel normalises whole rows, so
+    on DTensors the normalised dim (and ``scale``) is gathered first where it
+    is sharded or partial (the mamba mixer's gated norm over 'ffn')."""
     if cfg.use_flash:
+        if isinstance(x, DTensor):
+            x, scale = _whole_rows(x, scale)
         return ops.rmsnorm(x, scale, cfg.norm_eps)
     return rmsnorm(x, scale, cfg.norm_eps)
+
+
+def _whole_rows(x, scale):
+    nd = x.dim()
+    want = tuple(Replicate() if (pl.is_partial() or pl.is_shard(nd - 1)) else pl
+                 for pl in x.placements)
+    if want != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, want)
+    rep = (Replicate(),) * x.device_mesh.ndim
+    if tuple(scale.placements) != rep:
+        scale = scale.redistribute(x.device_mesh, rep)
+    return x, scale
 
 
 def rmsnorm_spec(d: int) -> dict:
@@ -126,10 +156,47 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
-def embed_lookup(table, tokens):
-    """Plain gather.  The reference's vocab-sharded masked-gather branch
-    belongs to the distribution slice."""
-    return table[tokens]
+def embed_lookup(table, tokens, enabled: bool = True):
+    """Embedding lookup; vocab-sharded under a mesh with ``enabled``.
+
+    A plain ``table[tokens]`` with the table sharded ('vocab'→model,
+    'embed'→data) would gather the whole table first.  Here each model shard
+    gathers from its local vocab slice through ``local_map``, with
+    out-of-range rows clipped, then masked to zero, and the partial rows are
+    summed over 'model': the body's output is declared ``Partial`` over
+    'model', and the all-reduce is the ``Partial → Replicate`` redistribute
+    that the next ``shard`` issues (an all-reduce inside the body would also
+    sum the gradient over 'model' in the backward: funcol's all_reduce
+    differentiates to another all_reduce).  Taken under the reference's
+    conditions (``enabled``, a mesh with 'model', ``V % model == 0``), else a
+    plain gather (of the whole table, on a mesh)."""
+    mesh = current_mesh()
+    V = table.shape[0]
+    if mesh is None or not isinstance(table, DTensor):
+        return table[tokens]
+    names = mesh.mesh_dim_names
+    data_axes = tuple(a for a in ("pod", "data") if a in names)
+    tok_spec = prune_pspec(tuple(tokens.shape), P(data_axes or None, None), mesh)
+    tok_pl = placements(tok_spec, mesh)
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    if (not enabled or "model" not in names or V % axis_sizes(mesh)["model"] != 0):
+        # the plain gather, as XLA partitions the reference's: the whole
+        # table on every rank (DTensor's own index over a sharded table fails
+        # in torch 2.11)
+        whole = tuple(Replicate() for _ in names)
+        return local_map(lambda tbl, tok: tbl[tok], (tok_pl,), (whole, tok_pl), mesh)(
+            table, tokens)
+    # the table enters model-sharded on vocab with the embed dim gathered
+    tbl_pl = placements(P("model", None), mesh)
+    out_pl = tuple(Partial() if n == "model" else p for n, p in zip(names, tok_pl, strict=True))
+
+    def body(tbl, tok):
+        v_loc = tbl.shape[0]
+        off = block_index(mesh, tbl_pl, 0) * v_loc
+        return take_in_block(tok, off, v_loc, lambda i: tbl[i])
+
+    return local_map(body, (out_pl,), (tbl_pl, tok_pl), mesh)(table, tokens)
 
 
 # -- MLP variants ------------------------------------------------------------
@@ -154,7 +221,7 @@ def mlp_apply(p: dict, x, cfg):
     reference's default."""
     if cfg.mlp == "none":
         return torch.zeros_like(x)
-    h = x @ p["wi"]
+    h = shard(x @ p["wi"], "batch", "seq", "ffn")
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["wg"]) * h
     elif cfg.mlp == "geglu":
@@ -164,4 +231,4 @@ def mlp_apply(p: dict, x, cfg):
     elif cfg.mlp == "squared_relu":
         h = torch.square(F.relu(h))
     h = checkpoint_name(h, "mlp_hidden")
-    return h @ p["wo"]
+    return shard(h @ p["wo"], "batch", "seq", "embed_act")

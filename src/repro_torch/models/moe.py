@@ -22,15 +22,19 @@ their atomics cannot reorder a sum.
 The experts' products are ``torch.bmm`` (cuBLAS) over an expert-major table
 (E, B·C, D) of the dispatched rows: the reference computes them with
 ``jnp.einsum`` outside any kernel, over (B, E, C, D).  Its ``shard``
-annotations wait for the distribution slice.
+annotations of the dispatched and expert tables ('experts' over 'model') are
+the placements of ``_moe_mesh``'s ``local_map``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from ..core.remat_policy import checkpoint_name
+from ..distributed.sharding import (current_mesh, local_map, placements, prune_pspec, pspec,
+                                    shard)
 from .layers import PSpec
 
 
@@ -70,12 +74,21 @@ def _route(p, x, cfg):
     return gates, top_gate, top_idx
 
 
+def _means(gates, top_idx, E: int):
+    """(me, ce): the gates' mean and the first choices' mean over the tokens,
+    (E,) each; no gradient through ``ce``."""
+    return (gates.mean(dim=(0, 1)),
+            F.one_hot(top_idx[..., 0], E).float().mean(dim=(0, 1)))
+
+
+def _aux_from_means(me, ce, E: int):
+    return E * torch.sum(me * ce)
+
+
 def _aux_loss(gates, top_idx, E: int):
     """Switch: E · Σ_e me·ce, ``ce`` from the first choice only (no gradient
     through it)."""
-    me = gates.mean(dim=(0, 1))
-    ce = F.one_hot(top_idx[..., 0], E).float().mean(dim=(0, 1))
-    return E * torch.sum(me * ce)
+    return _aux_from_means(*_means(gates, top_idx, E), E)
 
 
 def _dispatch_slots(top_idx, E: int, C: int):
@@ -119,29 +132,86 @@ def _expert_ffn(p, disp, cfg):
 def moe_apply(p: dict, x, cfg):
     """x: (B, S, D) → (y (B, S, D), aux_loss fp32 scalar).  Each batch row
     is a routing group of S tokens with ``_capacity(S, cfg)`` slots an
-    expert; entries past them are dropped (they add nothing to y)."""
+    expert; entries past them are dropped (they add nothing to y).
+
+    Under a mesh (``x`` a DTensor) the layer is one ``local_map``: each rank
+    routes its own batch rows over all E experts and runs the experts it
+    holds (E over 'model' when it divides, expert parallelism); its ``y`` is
+    ``Partial`` over 'model' and the next ``shard`` sums it.  The aux loss is
+    formed from the global means of the gates and of the first choices."""
+    E = cfg.moe.n_experts
+    if not isinstance(x, DTensor):
+        y, gates, top_idx = _moe_local(p, x, cfg, 0)
+        return y, _aux_loss(gates, top_idx, E)
+    y, me, ce = _moe_mesh(p, x, cfg)
+    return shard(y, "batch", "seq", "embed_act"), _aux_from_means(me, ce, E)
+
+
+def _moe_local(p: dict, x, cfg, e0: int):
+    """The layer on local tensors, for the experts ``e0 … e0 + E_loc − 1``
+    that ``p`` holds (``E_loc = p["wi"].shape[0]``; all of them off a mesh).
+    Returns (y: the sum over those experts, the gates (B,S,E), the top
+    experts (B,S,K))."""
     e = cfg.moe
     B, S, D = x.shape
     E, K = e.n_experts, e.top_k
+    E_loc = p["wi"].shape[0]
     C = _capacity(S, cfg)
 
     gates, top_gate, top_idx = _route(p, x, cfg)
-    aux_loss = _aux_loss(gates, top_idx, E)
     dest = _dispatch_slots(top_idx, E, C).reshape(B, S * K)
-    keep = dest < E * C
-    # a dropped entry reads the group's last slot (and is weighted by 0)
-    row = _table_rows(dest.clamp_max(E * C - 1), B, C).reshape(-1)
+    # kept entries of the experts held here, in their local slots
+    lo = e0 * C
+    mine = (dest >= lo) & (dest < lo + E_loc * C)
+    # a dropped or foreign entry reads the group's last slot (and is weighted by 0)
+    row = _table_rows((dest - lo).clamp(0, E_loc * C - 1), B, C).reshape(-1)
 
-    # dispatch: each entry's row of x to its slot; the overflow row E·B·C
-    # takes the dropped ones and is cut off
+    # dispatch: each entry's row of x to its slot; the overflow row E_loc·B·C
+    # takes the others and is cut off
     src = x[:, :, None, :].expand(B, S, K, D).reshape(B * S * K, D)
-    disp = torch.zeros((E * B * C + 1, D), dtype=x.dtype, device=x.device)
-    disp = disp.index_copy_(0, torch.where(keep.reshape(-1), row, E * B * C), src)
-    out_e = _expert_ffn(p, disp[:-1].view(E, B * C, D), cfg)
+    disp = torch.zeros((E_loc * B * C + 1, D), dtype=x.dtype, device=x.device)
+    disp = disp.index_copy_(0, torch.where(mine.reshape(-1), row, E_loc * B * C), src)
+    out_e = _expert_ffn(p, disp[:-1].view(E_loc, B * C, D), cfg)
 
-    # combine in token order: the gate (times keep) cast to the activation
+    # combine in token order: the gate (times mine) cast to the activation
     # dtype before the product, then the K entries of a token summed
-    vals = out_e.reshape(E * B * C, D).index_select(0, row)
-    w = (top_gate.reshape(-1) * keep.reshape(-1)).to(vals.dtype)
+    vals = out_e.reshape(E_loc * B * C, D).index_select(0, row)
+    w = (top_gate.reshape(-1) * mine.reshape(-1)).to(vals.dtype)
     y = (vals * w[:, None]).reshape(B, S, K, D).sum(dim=2)
-    return y, aux_loss
+    return y, gates, top_idx
+
+
+def _moe_mesh(p: dict, x, cfg):
+    """``_moe_local`` through ``local_map`` on the active mesh."""
+    mesh = current_mesh() or x.device_mesh
+    names = mesh.mesh_dim_names
+    x_pl = placements(prune_pspec(tuple(x.shape), pspec(("batch", None, None), mesh), mesh),
+                      mesh)
+    w_pl = placements(prune_pspec(tuple(p["wi"].shape), pspec(("experts", None, None), mesh),
+                                  mesh), mesh)
+    ep = [i for i, pl in enumerate(w_pl) if pl.is_shard(0)]      # expert-parallel mesh dims
+    rep = tuple(Replicate() for _ in names)
+    y_pl = tuple(Partial() if i in ep else pl for i, pl in enumerate(x_pl))
+    # the means: a partial sum over the mesh dims that shard the batch or the
+    # experts, each rank's mean divided by their size (an average over the
+    # batch's blocks; over 'model' every rank holds the same, and the router's
+    # gradient from each is a share of the whole)
+    split = [i for i, pl in enumerate(x_pl) if pl.is_shard(0) or i in ep]
+    m_pl = tuple(Partial() if i in split else Replicate() for i in range(len(names)))
+    n_split = 1
+    for i in split:
+        n_split *= mesh.size(i)
+    keys = sorted(p)
+
+    def body(xl, *ws):
+        local = dict(zip(keys, ws, strict=True))
+        e0 = 0
+        coord = mesh.get_coordinate()
+        for i in ep:
+            e0 = e0 * mesh.size(i) + int(coord[i])
+        y, gates, top_idx = _moe_local(local, xl, cfg, e0 * local["wi"].shape[0])
+        me, ce = _means(gates, top_idx, cfg.moe.n_experts)
+        return y, me / n_split, ce / n_split
+
+    in_pl = (x_pl, *(w_pl if k in ("wi", "wg", "wo") else rep for k in keys))
+    return local_map(body, (y_pl, m_pl, m_pl), in_pl, mesh)(x, *(p[k] for k in keys))

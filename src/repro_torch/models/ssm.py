@@ -22,8 +22,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..core.remat_policy import checkpoint_name
+from ..distributed.sharding import local_map, shard, unflatten
 from ..kernels import ops
 from .layers import PSpec, norm
 
@@ -48,14 +50,27 @@ def ssm_specs(cfg) -> dict:
     }
 
 
-def _causal_conv(u, w):
-    """Depthwise causal conv along axis 1.  u: (B,S,C); w: (cw,C)."""
+def _conv_local(u, w):
     cw = w.shape[0]
     out = u * w[-1]
     for i in range(1, cw):
         shifted = F.pad(u, (0, 0, i, 0))[:, :u.shape[1]]
         out = out + shifted * w[-1 - i]
     return out
+
+
+def _causal_conv(u, w):
+    """Depthwise causal conv along axis 1.  u: (B,S,C); w: (cw,C).  On a
+    DTensor, a ``local_map`` body over each rank's batch rows and channels
+    with the whole sequence: the conv never crosses either (and DTensor's
+    own pad and slice backward in torch 2.11 returned gradients of the wrong
+    length and placements)."""
+    if not isinstance(u, DTensor):
+        return _conv_local(u, w)
+    u_pl = tuple(pl if pl.is_shard(0) or pl.is_shard(2) else Replicate()
+                 for pl in u.placements)
+    w_pl = tuple(Shard(1) if pl.is_shard(2) else Replicate() for pl in u_pl)
+    return local_map(_conv_local, (u_pl,), (u_pl, w_pl), u.device_mesh)(u, w)
 
 
 def _intra_einsum(xc, dtc, Bc, Cc, cum):
@@ -92,11 +107,12 @@ def ssd_apply(p: dict, x, cfg):
     bc = x @ p["wbc"]
     xin = F.silu(_causal_conv(xin.float(), p["conv_x"])).to(x.dtype)
     bc = F.silu(_causal_conv(bc.float(), p["conv_bc"])).to(x.dtype)
-    Bm, Cm = bc.reshape(B_, S, 2 * G, N).split(G, dim=2)          # (B,S,G,N)
+    xin = shard(xin, "batch", "seq", "ffn")
+    Bm, Cm = unflatten(bc, -1, (2 * G, N)).split(G, dim=2)        # (B,S,G,N)
     dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"])        # (B,S,nh)
     A = -torch.exp(p["A_log"])                                    # (nh,)
 
-    xh = xin.reshape(B_, S, nh, hp)
+    xh = unflatten(xin, -1, (nh, hp))
 
     def ch(t):
         return t.reshape(B_, nc, Q, *t.shape[2:])
@@ -130,7 +146,31 @@ def ssd_apply(p: dict, x, cfg):
     y = checkpoint_name(y.reshape(B_, S, di), "ssm_state")
 
     y = norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg)
-    return y @ p["wo"]
+    return shard(y @ p["wo"], "batch", "seq", "embed_act")
+
+
+def _recur_local(state, dt, xh, Bh, Ch, A, D):
+    """One step of the SSM recurrence, per batch row and head: the state
+    (B,nh,hp,N) updated in place; returns y (B,nh,hp) fp32."""
+    decay = torch.exp(dt * A)                                     # (B,nh)
+    state.copy_(state * decay[..., None, None]
+                + torch.einsum("bh,bhp,bhn->bhpn", dt, xh, Bh))
+    y = torch.einsum("bhn,bhpn->bhp", Ch, state)
+    return y + xh * D[:, None]
+
+
+def _recurrence(state, dt, xh, Bh, Ch, A, D):
+    """``_recur_local``; on a DTensor state, on each rank's block of batch
+    rows and heads (``local_map``: the recurrence never crosses either, and
+    DTensor's planner takes minutes over these einsums on a 3-D mesh)."""
+    if not isinstance(state, DTensor):
+        return _recur_local(state, dt, xh, Bh, Ch, A, D)
+    mesh = state.device_mesh
+    st = tuple(state.placements)
+    heads = tuple(Shard(0) if pl.is_shard(1) else Replicate() for pl in st)
+    row = tuple(pl if pl.is_shard(0) or pl.is_shard(1) else Replicate() for pl in st)
+    return local_map(_recur_local, (row,), (st, row, row, row, row, heads, heads),
+                     mesh)(state, dt, xh, Bh, Ch, A, D)
 
 
 def ssd_decode_step(p: dict, x, conv_cache, state, cfg):
@@ -149,19 +189,15 @@ def ssd_decode_step(p: dict, x, conv_cache, state, cfg):
     conv_cache.copy_(win[:, 1:])
 
     xin_c, bc_c = conv_out[:, :di], conv_out[:, di:]
-    Bm, Cm = bc_c.reshape(B_, 2 * G, N).split(G, dim=1)           # (B,G,N)
+    Bm, Cm = unflatten(bc_c, -1, (2 * G, N)).split(G, dim=1)      # (B,G,N)
     rep = nh // G
     Bh = Bm.repeat_interleave(rep, dim=1)                         # (B,nh,N)
     Ch = Cm.repeat_interleave(rep, dim=1)
     dt = F.softplus((x[:, 0] @ p["wdt"]).float() + p["dt_bias"])  # (B,nh)
     A = -torch.exp(p["A_log"])
-    xh = xin_c.reshape(B_, nh, hp).float()
+    xh = unflatten(xin_c, -1, (nh, hp)).float()
 
-    decay = torch.exp(dt * A)                                     # (B,nh)
-    state.copy_(state * decay[..., None, None]
-                + torch.einsum("bh,bhp,bhn->bhpn", dt, xh, Bh.float()))
-    y = torch.einsum("bhn,bhpn->bhp", Ch.float(), state)
-    y = y + xh * p["D"][:, None]
+    y = _recurrence(state, dt, xh, Bh.float(), Ch.float(), A, p["D"])
     y = y.reshape(B_, 1, di).to(x.dtype)
     y = norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg)
     return y @ p["wo"], conv_cache, state

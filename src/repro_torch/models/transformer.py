@@ -39,10 +39,12 @@ import torch
 
 from .. import resolve_device, torch_dtype
 from ..core.remat_policy import checkpoint_name, checkpointed, resolve_remat
+from ..distributed.sharding import shard
 from .attention import (attn_decode_step, attn_specs, gqa_attention,
                         mla_attention, mla_decode_step, mla_specs)
-from .layers import (PSpec, embed_lookup, map_specs, materialize, mlp_apply,
-                     mlp_specs, norm, rmsnorm_spec, stack_specs)
+from .layers import (PSpec, abstract, axes_tree, embed_lookup, map_specs,
+                     materialize, mlp_apply, mlp_specs, norm, rmsnorm_spec,
+                     stack_specs)
 from .moe import moe_apply, moe_specs
 from .ssm import ssd_apply, ssd_decode_step, ssm_specs
 
@@ -102,6 +104,14 @@ def init_params(cfg, seed: int, device="cuda"):
     return materialize(param_specs(cfg), gen, dev)
 
 
+def abstract_params(cfg):
+    return abstract(param_specs(cfg))
+
+
+def param_axes(cfg):
+    return axes_tree(param_specs(cfg))
+
+
 # ---------------------------------------------------------------------------
 # forward (training / prefill)
 # ---------------------------------------------------------------------------
@@ -127,7 +137,9 @@ def _apply_layer(prm, x, cfg, spec, positions):
     elif cfg.mlp != "none":
         h2 = norm(x, prm["ln2"]["scale"], cfg)
         x = x + mlp_apply(prm["mlp"], h2, cfg)
-    return checkpoint_name(x, "block_out"), aux
+    x = checkpoint_name(x, "block_out")
+    seq_ax = "seq_sp" if cfg.seq_sharded_acts else "seq"
+    return shard(x, "batch", seq_ax, "embed_act"), aux
 
 
 def _unstack(tree, n: int) -> list:
@@ -141,7 +153,7 @@ def _unstack(tree, n: int) -> list:
 
 def _embed(params, cfg, inputs):
     if cfg.input_mode == "tokens":
-        x = embed_lookup(params["embed"]["table"], inputs)
+        x = embed_lookup(params["embed"]["table"], inputs, enabled=cfg.sharded_embed)
         # the scale is rounded to the activation dtype first
         return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return inputs.to(torch_dtype(cfg.compute_dtype))
@@ -160,6 +172,7 @@ def forward_hidden(params, cfg, inputs, positions=None):
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    x = shard(x, "batch", "seq_sp" if cfg.seq_sharded_acts else "seq", "embed_act")
 
     def period_body(x, per_params):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -192,7 +205,7 @@ def unembed_weight(params, cfg):
 
 def logits_fn(params, cfg, inputs):
     h, aux = forward_hidden(params, cfg, inputs)
-    return h @ unembed_weight(params, cfg), aux
+    return shard(h @ unembed_weight(params, cfg), "batch", "seq", "vocab"), aux
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +214,8 @@ def logits_fn(params, cfg, inputs):
 
 
 def _cache_entry_specs(cfg, spec, batch: int, max_seq: int) -> dict:
+    """The cache seq dim is ``kv_seq``: it shards over 'model' (or the whole
+    mesh under long_500k's rules override)."""
     hd, Kv = cfg.head_dim_, cfg.n_kv_heads
     if spec.mixer in ("attn", "local"):
         # a local layer keeps a ring of min(window, max_seq) slots
@@ -225,7 +240,10 @@ def _cache_entry_specs(cfg, spec, batch: int, max_seq: int) -> dict:
     raise ValueError(f"unknown mixer {spec.mixer!r}")
 
 
-def cache_specs(cfg, batch: int, max_seq: int) -> dict:
+def cache_specs(cfg, batch: int, max_seq: int, shard_kv_seq: bool = False) -> dict:
+    """``shard_kv_seq`` is accepted and unused, as in the reference: the seq
+    dim is always ``kv_seq``, and what it shards over is the rules' choice."""
+    del shard_kv_seq
     specs = cfg.layer_specs()
     period = cfg.scan_period()
     n_full = cfg.n_layers // period
@@ -247,6 +265,10 @@ def init_cache(cfg, batch: int, max_seq: int, device="cuda"):
     return map_specs(lambda s: torch.zeros(s.shape, dtype=torch_dtype(s.dtype),
                                            device=dev),
                      cache_specs(cfg, batch, max_seq))
+
+
+def cache_axes(cfg, batch: int, max_seq: int):
+    return axes_tree(cache_specs(cfg, batch, max_seq))
 
 
 def _decode_layer(prm, cache, x, pos, cfg, spec):
@@ -300,4 +322,4 @@ def decode_step(params, cache, cfg, inputs, pos: int):
                           specs[n_full * period + int(j)])
 
     x = norm(x, params["final_norm"]["scale"], cfg)
-    return x @ unembed_weight(params, cfg), cache
+    return shard(x @ unembed_weight(params, cfg), "batch", "seq", "vocab"), cache

@@ -27,6 +27,13 @@ The last three are plain PyTorch (no kernel exists for them, on the TPU
 either) and keep the reference's state trees leaf for leaf, so checkpoints
 load both ways.  Their step counters are int32 tensors on the leaves' device
 and their bias and decay terms fp32 tensors there: no host synchronisation.
+
+``state_axes(param_axes)`` gives the state tree's logical axes, the
+reference's (AdamW's moments on ``zero_state_axes``: the FSDP dim over
+('pod', 'data')).  On a mesh the leaves are DTensors: ``clip_by_global_norm``
+takes the norm of the global tensors, and AdamW brings each gradient and
+parameter onto its state's placement for the update and the parameter back
+(the ZeRO layout).
 """
 
 from __future__ import annotations
@@ -36,9 +43,11 @@ from collections.abc import Callable
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import torch_dtype
 from ..convert import tree_leaves, tree_map
+from ..distributed.sharding import Ax, map_axes, zero_state_axes
 from ..kernels import ops
 
 
@@ -47,6 +56,12 @@ class Optimizer:
     name: str
     init: Callable
     update: Callable
+    state_axes: Callable
+
+
+def _local(t):
+    """A DTensor's local shard (writes to it reach the DTensor), else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def warmup_cosine(base_lr: float, warmup: int = 100, total: int = 10000,
@@ -63,8 +78,12 @@ def warmup_cosine(base_lr: float, warmup: int = 100, total: int = 10000,
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.float()))
-                          for l in tree_leaves(tree)))
+    """The 2-norm over every leaf; of a DTensor leaf, over the global tensor
+    (its local sum of squares reduced over the mesh)."""
+    def sq(l):
+        s = torch.sum(torch.square(l.float()))
+        return s.full_tensor() if isinstance(s, DTensor) else s
+    return torch.sqrt(sum(sq(l) for l in tree_leaves(tree)))
 
 
 @torch.no_grad()
@@ -74,8 +93,14 @@ def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
-        g.mul_(scale)
+        _local(g).mul_(scale)
     return grads, norm
+
+
+def zero_write_back(p, pz) -> None:
+    """``p`` ← its updated copy ``pz`` on the state's placement, brought back
+    onto p's (the all-gather over 'pod')."""
+    p.to_local().copy_(pz.redistribute(p.device_mesh, p.placements).to_local())
 
 
 def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -95,14 +120,28 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         count = state["count"] + 1
         lr_t = float(lr_fn(step))
 
-        leaves = []
-        tree_map(lambda *t: leaves.append(t), params, grads, state["m"], state["v"])
+        leaves, back = [], []
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                              tree_leaves(state["m"]), tree_leaves(state["v"]), strict=True):
+            if isinstance(p, DTensor) and tuple(m.placements) != tuple(p.placements):
+                # ZeRO: the update runs on the state's shard of p and g
+                pz = p.redistribute(m.device_mesh, m.placements)
+                g = g.redistribute(m.device_mesh, m.placements)
+                back.append((p, pz))
+                p = pz
+            leaves.append((p, g, m, v))
         # fp32 math; weight decay acts on the old p; in place
         ops.fused_adam_multi(*zip(*leaves, strict=True), count, lr_t, b1, b2, eps,
                              weight_decay)
+        for p, pz in back:
+            zero_write_back(p, pz)
         return params, {"m": state["m"], "v": state["v"], "count": count}
 
-    return Optimizer("adamw", init, update)
+    def state_axes(param_axes):
+        zero = map_axes(zero_state_axes, param_axes)
+        return {"m": zero, "v": zero, "count": Ax(())}
+
+    return Optimizer("adamw", init, update, state_axes)
 
 
 def _count(params) -> torch.Tensor:
@@ -135,7 +174,10 @@ def sgd_momentum(lr=1e-2, momentum: float = 0.9) -> Optimizer:
             p.copy_(p.float() + v)
         return params, {"v": state["v"]}
 
-    return Optimizer("sgd_momentum", init, update)
+    def state_axes(param_axes):
+        return {"v": param_axes}
+
+    return Optimizer("sgd_momentum", init, update, state_axes)
 
 
 def adafactor(lr=3e-4, decay: float = 0.8, eps: float = 1e-30,
@@ -182,7 +224,14 @@ def adafactor(lr=3e-4, decay: float = 0.8, eps: float = 1e-30,
             upd(p, g, f)
         return params, {"f": state["f"], "count": count}
 
-    return Optimizer("adafactor", init, update)
+    def state_axes(param_axes):
+        def f_axes(a):
+            if len(a.axes) >= 2:
+                return {"r": Ax(a.axes[:-1]), "c": Ax(a.axes[:-2] + a.axes[-1:])}
+            return {"v": a}
+        return {"f": map_axes(f_axes, param_axes), "count": Ax(())}
+
+    return Optimizer("adafactor", init, update, state_axes)
 
 
 def galore_adamw(lr=3e-4, rank: int = 64, b1: float = 0.9, b2: float = 0.95,
@@ -244,7 +293,17 @@ def galore_adamw(lr=3e-4, rank: int = 64, b1: float = 0.9, b2: float = 0.95,
             upd(p, g, s)
         return params, {"s": state["s"], "count": count}
 
-    return Optimizer("galore_adamw", init, update)
+    def state_axes(param_axes):
+        """The reference's: every 2-D leaf gets ``{"P", "m", "v"}`` axes, also
+        one too small to be projected (whose state has no ``P``)."""
+        def f_axes(a):
+            if len(a.axes) == 2:
+                return {"P": Ax((a.axes[0], None)), "m": Ax((None, a.axes[1])),
+                        "v": Ax((None, a.axes[1]))}
+            return {"m": a, "v": a}
+        return {"s": map_axes(f_axes, param_axes), "count": Ax(())}
+
+    return Optimizer("galore_adamw", init, update, state_axes)
 
 
 OPTIMIZERS = {

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import block_index, local_map, shard, take_in_block
 from ..models.transformer import forward_hidden, unembed_weight
 
 Z_LOSS = 1e-4
@@ -21,8 +22,34 @@ def _xent_from_logits(logits, labels):
     logits = logits.float()
     m = logits.max(dim=-1, keepdim=True).values.detach()
     lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
-    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return lse - label_logit, torch.square(lse)
+    return lse - _label_logit(logits, labels), torch.square(lse)
+
+
+def _label_logit(logits, labels):
+    """``logits[..., label]``.  With the vocab dim of a DTensor sharded, each
+    shard gathers from its own slice through ``local_map`` (clipped, then
+    masked to zero) and the result is ``Partial`` over the vocab's mesh dims:
+    DTensor's own gather over a sharded dim fails here (torch 2.13)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    nd = logits.dim()
+    vdims = ([i for i, p in enumerate(logits.placements) if p.is_shard(nd - 1)]
+             if isinstance(logits, DTensor) else [])
+    if not vdims:
+        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    mesh = logits.device_mesh
+    lab_pl = tuple(Replicate() if i in vdims else p for i, p in enumerate(logits.placements))
+    out_pl = tuple(Partial() if i in vdims else p for i, p in enumerate(logits.placements))
+
+    def body(lg, lab):
+        v_loc = lg.shape[-1]
+        off = block_index(mesh, logits.placements, nd - 1) * v_loc
+        return take_in_block(lab, off, v_loc,
+                             lambda i: torch.gather(lg, -1, i[..., None])[..., 0])
+
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return local_map(body, (out_pl,), (logits.placements, lab_pl), mesh)(logits, labels)
 
 
 def lm_loss(params, cfg, inputs, labels, loss_chunk: int | None = None):
@@ -39,7 +66,8 @@ def lm_loss(params, cfg, inputs, labels, loss_chunk: int | None = None):
 
     if chunk and S % chunk == 0 and S > chunk:
         def chunk_nll(h, lab, msk):
-            nll, z = _xent_from_logits(h @ w, lab)       # (B, chunk, V) transient
+            logits = shard(h @ w, "batch", "seq", "vocab")   # (B, chunk, V) transient
+            nll, z = _xent_from_logits(logits, lab)
             return torch.sum(nll * msk), torch.sum(z * msk)
 
         nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -55,7 +83,8 @@ def lm_loss(params, cfg, inputs, labels, loss_chunk: int | None = None):
             nll_sum = nll_sum + dn
             z_sum = z_sum + dz
     else:
-        nll, z = _xent_from_logits(hidden @ w, safe_labels)
+        logits = shard(hidden @ w, "batch", "seq", "vocab")
+        nll, z = _xent_from_logits(logits, safe_labels)
         nll_sum = torch.sum(nll * mask)
         z_sum = torch.sum(z * mask)
 

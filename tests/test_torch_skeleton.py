@@ -26,8 +26,9 @@ SRC = os.path.join(ROOT, "src")
 
 
 def test_import_isolation():
-    """Importing the port and every one of its modules loads neither jax nor
-    anything of the JAX package."""
+    """Importing the port and every one of its modules (the distribution and
+    dry-run modules among them) loads neither jax nor anything of the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -35,7 +36,10 @@ def test_import_isolation():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.') or m == 'jaxlib']\n"
-        "assert len(names) >= 30, names\n"
+        "assert len(names) >= 46, names\n"
+        "need = {'repro_torch.distributed.sharding', 'repro_torch.launch.mesh', "
+        "'repro_torch.launch.cell', 'repro_torch.launch.dryrun'}\n"
+        "assert need <= set(names), need - set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     env = dict(os.environ, PYTHONPATH=SRC)
