@@ -81,6 +81,19 @@ Phases, each printing one JSON line (or a few):
               mamba2-1.3b decode_32k on (16, 16) and (2, 16, 16): a fake
               process group of 512 ranks and meta local shards; FLOPs a
               device and global, collectives by kind, bytes, seconds
+  trace       repro_torch.core.trace over one real training step as train
+              runs it: gemma3-1b at full width and depth (4 x 4096, bf16,
+              use_flash, remat="dots", AdamW through fused_adam), then
+              mamba2-1.3b and olmoe-1b-7b at full width and 4 layers; kernel
+              nodes per entry point == the step's LAUNCHES delta, gemm-class
+              FLOPs == FlopCounterMode over the same step on meta (plus what
+              SAC's recompute hides from it) within 1 %, gemma3-1b's graph on
+              the card == its graph on meta, a small gemma3's on the card ==
+              on the CPU; the graph validated and scheduled with the port's
+              core on tpu_v5e_like(); nodes, tensors, FLOPs by class, cycles,
+              peak memory, trace and schedule seconds beside the measured
+              step time; a planted fault (the norm's hook switched off) that
+              the count check must catch
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 non-zero and the last line is not printed.  There is no CPU fallback.
@@ -117,9 +130,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.ckpt.store import latest_step, load_checkpoint  # noqa: E402
 from repro_torch.configs import get_config, get_shape, smoke_config  # noqa: E402
 from repro_torch.convert import tree_flatten_with_path, tree_map  # noqa: E402
-from repro_torch.core import remat_policy  # noqa: E402
+from repro_torch.core import remat_policy, schedule, tpu_v5e_like  # noqa: E402
+from repro_torch.core.trace import flop_count, recording  # noqa: E402
 from repro_torch.core.remat_policy import keepset_to_policy, resolve_remat  # noqa: E402
-from repro_torch.data.pipeline import make_tokens  # noqa: E402
+from repro_torch.data.pipeline import make_batch, make_tokens  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_adam as fad  # noqa: E402
@@ -128,7 +142,8 @@ from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
 from repro_torch.launch.train import Trainer  # noqa: E402
 from repro_torch.models import attention, moe, ssm, transformer  # noqa: E402
-from repro_torch.models.transformer import init_cache, init_params, logits_fn  # noqa: E402
+from repro_torch.models.transformer import (abstract_params, init_cache, init_params,  # noqa: E402
+                                            logits_fn)
 from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.training.loss import lm_loss  # noqa: E402
 from repro_torch.distributed.sharding import whole  # noqa: E402
@@ -1718,7 +1733,6 @@ def profile_step(tr, params, opt_state, phase: str, per_step: dict, batch: int,
     autograd of the plain version beneath its autograd node."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data.pipeline import make_batch
     data = make_batch(tr.cfg, tr.shape, step, tr.seed, batch, device=DEV)
     torch.cuda.synchronize()
     t0 = time.time()
@@ -2238,7 +2252,6 @@ class OpCounter(TorchDispatchMode):
 
 def ops_a_step(tr, params, opt_state, batch: int) -> int:
     """Aten operators of one more training step of ``tr``."""
-    from repro_torch.data.pipeline import make_batch
     from repro_torch.distributed.sharding import use_mesh
     data = tr._shard_batch(make_batch(tr.cfg, tr.shape, 0, tr.seed, batch, device=DEV))
     with use_mesh(tr.mesh), OpCounter() as count:
@@ -2355,11 +2368,204 @@ def phase_dryrun() -> None:
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+#: trace: mamba2-1.3b and olmoe-1b-7b at full width and reduced depth (their
+#: ssd_chunk and MoE operators through the tracer on the card)
+TRACE_SSM_LAYERS, TRACE_MOE_LAYERS = 4, 4
+#: trace: the graph's gemm- and conv-class FLOPs against FlopCounterMode over
+#: the same step on meta, plus what SAC's recompute hides from it there
+TRACE_FLOP_RTOL = 0.01
+
+
+def by_class(g) -> dict:
+    out = Counter()
+    for n in g.nodes.values():
+        out[n.op_class] += n.flops
+    return dict(out)
+
+
+def graph_rows(g) -> tuple:
+    """Every tensor and node of a graph, field by field, in order."""
+    return ([(s.name, s.shape, s.dtype, s.is_param, s.is_state, s.is_input)
+             for s in g.tensors.values()],
+            [(n.name, n.op, n.kind, sorted(n.dims.items()), n.inputs, n.outputs, n.flops,
+              sorted(n.meta.items(), key=str)) for n in g.nodes.values()])
+
+
+def first_difference(a, b) -> str:
+    for what, xs, ys in (("tensor", a[0], b[0]), ("node", a[1], b[1])):
+        for i, (x, y) in enumerate(zip(xs, ys, strict=False)):
+            if x != y:
+                return f"{what} {i}: {x} vs {y}"
+        if len(xs) != len(ys):
+            return f"{len(xs)} vs {len(ys)} {what}s"
+    return "none"
+
+
+def check_kernel_nodes(rec, before: dict) -> dict:
+    """The trace's kernel nodes per entry point against the traced step's
+    ``LAUNCHES`` delta; returns the delta."""
+    delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+    if rec.kernel_nodes != delta:
+        raise AssertionError(f"trace: kernel nodes {rec.kernel_nodes} differ from the "
+                             f"traced step's LAUNCHES delta {delta}")
+    return delta
+
+
+def meta_step_args(tr, data):
+    params = abstract_params(tr.cfg)
+    return params, tr.opt.init(params), {k: torch.empty_like(v, device="meta")
+                                         for k, v in data.items()}
+
+
+def traced_step(cfg, what: str, batch: int = TRAIN_BATCH, timed: int = 2,
+                same_on_meta: bool = False) -> tuple[dict, dict]:
+    """One training step of ``cfg`` as ``train`` runs it (``Trainer.step_fn``
+    at ``batch`` × 4096, AdamW through fused_adam), traced on the card after
+    ``timed`` + 1 untimed-then-timed steps: the kernel nodes per entry point
+    equal to the traced step's ``LAUNCHES`` delta, a finite loss, the graph's
+    gemm- and conv-class FLOPs equal to ``FlopCounterMode`` over the same step
+    on ``meta`` (plus what SAC's recompute hides from it there) within
+    ``TRACE_FLOP_RTOL``, the graph validated (on leaving ``recording``) and
+    scheduled on ``tpu_v5e_like()``; with ``same_on_meta``, the graph equal
+    field by field to the step's graph on ``meta``.  Returns (the results,
+    the launches)."""
+    tr = Trainer(cfg, get_shape("train_4k"), device=DEV)
+    params, state = tr.init_state()
+    data = make_batch(cfg, tr.shape, 0, tr.seed, batch, device=DEV)
+    times = []
+    for i in range(1 + timed):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, state, _ = tr.step_fn(params, state, data, i)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    before = dict(ops.LAUNCHES)
+    t0 = time.time()
+    with recording(f"{cfg.name}_train_step", params=params, inputs=(state, data)) as rec:
+        params, state, metrics = tr.step_fn(params, state, data, 1 + timed)
+        torch.cuda.synchronize()
+    trace_s = time.time() - t0
+    launches = check_kernel_nodes(rec, before)
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"trace: the traced step's loss is {loss}")
+    g = rec.graph
+    del params, state, metrics
+    torch.cuda.empty_cache()
+    cls = by_class(g)
+    t0 = time.time()
+    counted, hidden = flop_count(tr.step_fn, *meta_step_args(tr, data), 0)
+    flop_s = time.time() - t0
+    traced = cls.get("gemm", 0) + cls.get("conv", 0)
+    rel = abs(traced - (counted + hidden)) / max(counted + hidden, 1)
+    if not rel <= TRACE_FLOP_RTOL:
+        raise AssertionError(f"trace: gemm + conv FLOPs {traced} against FlopCounterMode "
+                             f"{counted} + {hidden} hidden by the recompute: {rel:.4f} apart")
+    meta_same = None
+    if same_on_meta:
+        margs = meta_step_args(tr, data)
+        with recording(f"{cfg.name}_train_step", params=margs[0], inputs=margs[1:]) as mrec:
+            tr.step_fn(*margs, 1 + timed)
+        diff = first_difference(graph_rows(g), graph_rows(mrec.graph))
+        if diff != "none":
+            raise AssertionError(f"trace: the graph on the card differs from meta's: {diff}")
+        meta_same = True
+    t0 = time.time()
+    res = schedule(g, tpu_v5e_like())
+    sched_s = time.time() - t0
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch, "seq": SEQ,
+           "remat": cfg.remat, "dtype": cfg.param_dtype, "use_flash": cfg.use_flash,
+           "what": what, "nodes": len(g), "tensors": len(g.tensors),
+           "params": sum(1 for t in g.tensors.values() if t.is_param),
+           "param_bytes": sum(t.bytes for t in g.tensors.values() if t.is_param),
+           "flops_by_class": cls, "flops_total": g.total_flops(),
+           "kernel_nodes": dict(rec.kernel_nodes), "launches_delta": launches,
+           "loss": loss, "flopcounter_meta": counted, "flopcounter_hidden_by_recompute": hidden,
+           "gemm_conv_flops_rel_diff": rel, "tol_rel": TRACE_FLOP_RTOL,
+           "graph_equal_to_meta": meta_same,
+           "schedule": {"hda": "tpu_v5e_like", "latency_cycles": res.latency,
+                        "peak_mem_bytes": res.peak_mem, "energy_pj": res.energy,
+                        "n_subgraphs": res.n_subgraphs, "mem_breakdown": res.mem_breakdown},
+           "trace_s": trace_s, "schedule_s": sched_s, "flopcounter_meta_s": flop_s,
+           "step_s_untraced": times[1:], "first_step_s": times[0], "card": smi()}
+    return out, launches
+
+
+def small_cpu_cuda_graphs() -> dict:
+    """A small gemma3 (smoke config, use_flash, dots, 2 × 128 tokens, AdamW)
+    traced on the CPU (plain versions) and on the card (kernels) from the
+    same weights: the two graphs equal field by field."""
+    cfg = replace(smoke_config("gemma3-1b"), use_flash=True, remat="dots")
+    base = init_params(cfg, 0, "cpu")
+
+    def weights_on(dev):
+        return tree_map(lambda t: t.to(dev).clone(), base)
+
+    graphs = {}
+    for dev in ("cpu", DEV):
+        tr = Trainer(cfg, get_shape("train_4k"), device=dev)
+        data = {k: v.clone() for k, v in make_batch(cfg, tr.shape, 0, 0, 2, 128,
+                                                   device=dev).items()}
+        for traced in (False, True):
+            params = weights_on(dev)
+            state = tr.opt.init(params)
+            if not traced:
+                tr.step_fn(params, state, data, 0)     # caches filled (RoPE tables)
+                continue
+            before = dict(ops.LAUNCHES)
+            with recording("small_gemma3", params=params, inputs=(state, data)) as rec:
+                tr.step_fn(params, state, data, 0)
+            if dev == DEV:
+                check_kernel_nodes(rec, before)
+            graphs[dev] = rec.graph
+    diff = first_difference(graph_rows(graphs["cpu"]), graph_rows(graphs[DEV]))
+    if diff != "none":
+        raise AssertionError(f"trace: the small gemma3's graph on the card differs from the "
+                             f"CPU's: {diff}")
+    return {"nodes": len(graphs[DEV]), "tensors": len(graphs[DEV].tensors), "equal": True}
+
+
+def phase_trace(gemma, mamba, olmoe) -> dict:
+    """``repro_torch.core.trace`` on the card: gemma3-1b at full size, a
+    planted fault, a small gemma3 on the CPU and on the card, then mamba2-1.3b
+    and olmoe-1b-7b at full width and reduced depth (``traced_step``).
+    Returns the launches of each traced step."""
+    out, launches = {}, {}
+    out["gemma3"], launches["trace_gemma3"] = traced_step(
+        gemma, "the train phase's step, full width and depth", same_on_meta=True)
+    emit("trace", **out["gemma3"])
+    torch.cuda.empty_cache()
+    # planted fault: the norm's forward around kernel_call (its hook off)
+    hookless = lambda x, scale, eps=1e-6: rn.rmsnorm_cuda(x, scale, eps)  # noqa: E731
+    try:
+        with patched(rn, "rmsnorm_fwd", hookless):
+            traced_step(replace(gemma, n_layers=2), "planted fault", batch=1, timed=0)
+    except AssertionError as e:
+        if "kernel nodes" not in str(e):
+            raise
+        emit("trace_fault", caught=True, what="rmsnorm's forward without its trace hook",
+             message=str(e)[:300])
+    else:
+        raise AssertionError("trace: the planted fault (the norm's hook switched off) passed "
+                             "the kernel-node check")
+    torch.cuda.empty_cache()
+    emit("trace_cpu_vs_card", **small_cpu_cuda_graphs())
+    for key, cfg, layers, full in (("mamba2", mamba, TRACE_SSM_LAYERS, 48),
+                                   ("olmoe", olmoe, TRACE_MOE_LAYERS, 16)):
+        out[key], launches[f"trace_{key}"] = traced_step(
+            replace(cfg, n_layers=layers),
+            f"full width, n_layers {full} -> {layers} (its kernels and operators through "
+            "the tracer; the train phases run the deeper model)", timed=1)
+        emit(f"trace_{key}", **out[key])
+        torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------------------
 
 PHASES = ("env", "build", "kernels", "train", "train_ssm", "train_mla", "train_moe", "remat",
           "train_opt", "train_mesh", "serve", "parity", "parity_ssm", "parity_serve",
-          "parity_moe", "parity_opt", "dryrun")
+          "parity_moe", "parity_opt", "dryrun", "trace")
 
 
 def main() -> None:
@@ -2450,6 +2656,9 @@ def main() -> None:
     if "dryrun" in phases:
         phase_dryrun()
         lap("dryrun")
+    if "trace" in phases:
+        launches.update(phase_trace(gemma, mamba, olmoe))
+        lap("trace")
 
     emit("done", phases=phases, seconds=round(time.time() - t0, 1), phase_seconds=seconds)
     if timed is not None and {"train", "train_ssm"} <= set(launches):

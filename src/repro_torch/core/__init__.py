@@ -1,3 +1,35 @@
-"""The port's counterpart of ``repro.core``: so far only ``remat_policy``,
-the bridge from MONET's activation-checkpointing keep-sets to the training
-step's selective recompute.  The numpy core follows in a later slice."""
+"""The port's counterpart of ``repro.core``: MONET's analytic model, its own
+copies of the reference's numpy modules (``graph``, ``accelerators``,
+``cost_model``, ``training_transform``, ``memory``, ``engine``, ``verify``,
+``scheduling``), the front-end that turns a PyTorch step into its IR
+(``trace``), and ``remat_policy``, the bridge from MONET's activation-
+checkpointing keep-sets to the training step's selective recompute.  The
+rest of the reference's core (``batch`` first) follows in later slices
+(ROADMAP A9).  Exports what the reference's ``core/__init__.py`` exports
+from these modules."""
+
+from .accelerators import (EDGE_TPU_SPACE, FUSEMAX_SPACE, TPU_V5E,
+                           ClusterSpec, CoreSpec, FaultModel, HDASpec,
+                           MemLevel, datacenter_cluster,
+                           datacenter_fault_model, edge_cluster,
+                           edge_fault_model, edge_tpu, fusemax, grid,
+                           tpu_v5e_like, with_interconnect)
+from .cost_model import (CostModel, NodeCost, collective_wire, comm_cycles,
+                         comm_node_cost, dma_cycles, dma_node_cost)
+from .engine import (EvalEngine, GraphSigs, clear_engines, get_engine,
+                     graph_sigs)
+from .graph import GraphError, Node, TensorSpec, WorkloadGraph
+from .memory import (MEM_CATEGORIES, ActivationPolicy, LifetimePlan,
+                     MemProfile, apply_offload, build_lifetime_plan,
+                     lifetime_profile, local_capacity, schedule_priorities,
+                     static_breakdown, tensor_category, tile_working_set)
+from .remat_policy import keepset_to_policy, policy_from_keep, resolve_remat
+from .scheduling import ScheduleResult, quotient_dag, schedule
+from .trace import trace_fn, trace_model
+from .training_transform import (OPTIMIZERS, TrainingGraph,
+                                 build_training_graph)
+from .verify import (RULES, Finding, VerificationError, sanitize_enabled,
+                     verify_cache, verify_degrade, verify_graph,
+                     verify_parallel, verify_result, verify_schedule)
+
+__all__ = [k for k in dir() if not k.startswith("_")]

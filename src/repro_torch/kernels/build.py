@@ -40,6 +40,9 @@ LAUNCHES = dict.fromkeys(ENTRY_POINTS, 0)
 #: fallback can hide; the dry-run's FLOP counters see the plain version's
 #: operators)
 PLAIN_DEVICES = ("cpu", "meta")
+#: the recorder of an active trace (``repro_torch.core.trace``), or ``None``:
+#: while it is set, ``kernel_call`` hands each wrapper's call to it
+TRACE_HOOK = None
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: filled by the build: seconds, and ptxas' per-kernel resource lines
@@ -155,3 +158,15 @@ def launch(name: str, argtypes: list, device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
+
+
+def kernel_call(name: str, plain, run, *args, written: tuple[int, ...] = ()):
+    """``run(*args)``, where ``run`` is the kernel of entry point ``name`` or,
+    for tensors on a ``PLAIN_DEVICES`` device, its plain version ``plain``:
+    the one place where each wrapper has chosen between the two.  While a
+    trace is active (``TRACE_HOOK``) the call goes through the tracer, which
+    records it as one node; ``written`` holds the positions of the arguments
+    that the call updates in place."""
+    if TRACE_HOOK is None:
+        return run(*args)
+    return TRACE_HOOK(name, plain, run, args, written)

@@ -22,7 +22,10 @@
 * ``fused_adam_multi`` updates lists of leaves in place, one launch per
   dtype group (``fused_adam`` is a list of one);
 * ``LAUNCHES`` counts the launches of every C entry point: the six kernels
-  and the rmsnorm backward (``build.LAUNCHES``).
+  and the rmsnorm backward (``build.LAUNCHES``);
+* every wrapper makes its choice between kernel and plain version through
+  ``build.kernel_call``, which an active trace (``core/trace.py``) records as
+  one node a launch.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from torch.distributed.tensor import DTensor, Shard
 from ..distributed import sharding
 from . import flash_attention as _fa
 from . import fused_adam as _ad
-from .build import LAUNCHES, PLAIN_DEVICES  # noqa: F401  (LAUNCHES: re-export)
+from .build import LAUNCHES, PLAIN_DEVICES, kernel_call  # noqa: F401  (LAUNCHES: re-export)
 from .ref import from_heads, to_heads
 from .rmsnorm import RMSNorm
 from .ssd_chunk import SSDChunk
@@ -143,9 +146,8 @@ def flash_fwd(q, k, v, causal=True, window=None, scale=None):
         _check_same_heads("flash_fwd", q, k, v)
         return mesh_call(lambda *a: flash_fwd(*a, causal, window, scale), (q, k, v),
                          (tuple(q.placements), _lse_placements(q)))
-    if _plain(q):
-        return _fa.flash_fwd_plain(q, k, v, causal, window, scale)
-    return _fa.flash_fwd_cuda(q, k, v, causal, window, scale)
+    run = _fa.flash_fwd_plain if _plain(q) else _fa.flash_fwd_cuda
+    return kernel_call("flash_fwd", _fa.flash_fwd_plain, run, q, k, v, causal, window, scale)
 
 
 def flash_dq(q, k, v, do, lse, delta, causal=True, window=None, scale=None):
@@ -153,9 +155,9 @@ def flash_dq(q, k, v, do, lse, delta, causal=True, window=None, scale=None):
         _check_same_heads("flash_dq", q, k, v, ("do", do), ("lse", lse), ("delta", delta))
         return mesh_call(lambda *a: flash_dq(*a, causal, window, scale),
                          (q, k, v, do, lse, delta), (tuple(q.placements),))
-    if _plain(q):
-        return _fa.flash_dq_plain(q, k, v, do, lse, delta, causal, window, scale)
-    return _fa.flash_dq_cuda(q, k, v, do, lse, delta, causal, window, scale)
+    run = _fa.flash_dq_plain if _plain(q) else _fa.flash_dq_cuda
+    return kernel_call("flash_dq", _fa.flash_dq_plain, run, q, k, v, do, lse, delta, causal,
+                       window, scale)
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal=True, window=None, scale=None):
@@ -163,9 +165,9 @@ def flash_dkv(q, k, v, do, lse, delta, causal=True, window=None, scale=None):
         _check_same_heads("flash_dkv", q, k, v, ("do", do), ("lse", lse), ("delta", delta))
         return mesh_call(lambda *a: flash_dkv(*a, causal, window, scale),
                          (q, k, v, do, lse, delta), (tuple(k.placements),) * 2)
-    if _plain(q):
-        return _fa.flash_dkv_plain(q, k, v, do, lse, delta, causal, window, scale)
-    return _fa.flash_dkv_cuda(q, k, v, do, lse, delta, causal, window, scale)
+    run = _fa.flash_dkv_plain if _plain(q) else _fa.flash_dkv_cuda
+    return kernel_call("flash_dkv", _fa.flash_dkv_plain, run, q, k, v, do, lse, delta, causal,
+                       window, scale)
 
 
 def attention_delta(o, do):
@@ -232,10 +234,14 @@ def fused_adam_multi(ps, gs, ms, vs, count, lr, b1=0.9, b2=0.95, eps=1e-8,
         if isinstance(count, DTensor):
             count = count.to_local()
         fused_adam_multi(*local, count, lr, b1, b2, eps, weight_decay)
-    elif all(_plain(p) for p in ps):
-        _ad.fused_adam_multi_plain(ps, gs, ms, vs, count, lr, b1, b2, eps, weight_decay)
     else:
-        _ad.fused_adam_multi_cuda(ps, gs, ms, vs, count, lr, b1, b2, eps, weight_decay)
+        # one call a launch group, so that a trace records one node a launch
+        plain = _ad.fused_adam_multi_plain
+        run = plain if all(_plain(p) for p in ps) else _ad.fused_adam_multi_cuda
+        for idx in _ad.launch_groups(ps, gs, ms):
+            leaves = [[ts[i] for i in idx] for ts in (ps, gs, ms, vs)]
+            kernel_call("fused_adam", plain, run, *leaves, count, lr, b1, b2, eps, weight_decay,
+                        written=(0, 2, 3))
 
 
 def fused_adam(p, g, m, v, count, lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0):

@@ -19,7 +19,7 @@ import functools
 
 import torch
 
-from .build import PLAIN_DEVICES, launch, load_library
+from .build import PLAIN_DEVICES, kernel_call, launch, load_library
 from .ref import rmsnorm_ref
 
 #: d must be a multiple of this (one 16-byte bf16 load) and at most MAX_D
@@ -124,17 +124,15 @@ def rmsnorm_bwd_cuda(x, scale, dy, eps: float = 1e-6):
 def rmsnorm_fwd(x, scale, eps: float = 1e-6):
     """The plain version for a CPU (or ``meta``) tensor, the kernel for a
     CUDA tensor."""
-    if x.device.type in PLAIN_DEVICES:
-        return rmsnorm_plain(x, scale, eps)
-    return rmsnorm_cuda(x, scale, eps)
+    run = rmsnorm_plain if x.device.type in PLAIN_DEVICES else rmsnorm_cuda
+    return kernel_call("rmsnorm", rmsnorm_plain, run, x, scale, eps)
 
 
 def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
     """The plain backward for a CPU (or ``meta``) tensor, the kernel for a
     CUDA tensor."""
-    if x.device.type in PLAIN_DEVICES:
-        return rmsnorm_bwd_plain(x, scale, dy, eps)
-    return rmsnorm_bwd_cuda(x, scale, dy, eps)
+    run = rmsnorm_bwd_plain if x.device.type in PLAIN_DEVICES else rmsnorm_bwd_cuda
+    return kernel_call("rmsnorm_bwd", rmsnorm_bwd_plain, run, x, scale, dy, eps)
 
 
 class RMSNorm(torch.autograd.Function):

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from .build import PLAIN_DEVICES, launch
+from .build import PLAIN_DEVICES, kernel_call, launch
 from .ref import ssd_intra
 
 #: head dims, state sizes and chunk lengths the kernel is instantiated for
@@ -98,9 +98,8 @@ def ssd_chunk_cuda(x, dt, b, c, a):
 def ssd_chunk_fwd(x, dt, b, c, a):
     """The plain version for CPU (or ``meta``) tensors, the kernel for CUDA
     tensors."""
-    if x.device.type in PLAIN_DEVICES:
-        return ssd_chunk_plain(x, dt, b, c, a)
-    return ssd_chunk_cuda(x, dt, b, c, a)
+    run = ssd_chunk_plain if x.device.type in PLAIN_DEVICES else ssd_chunk_cuda
+    return kernel_call("ssd_chunk", ssd_chunk_plain, run, x, dt, b, c, a)
 
 
 class SSDChunk(torch.autograd.Function):

@@ -76,9 +76,12 @@ def _route(p, x, cfg):
 
 def _means(gates, top_idx, E: int):
     """(me, ce): the gates' mean and the first choices' mean over the tokens,
-    (E,) each; no gradient through ``ce``."""
-    return (gates.mean(dim=(0, 1)),
-            F.one_hot(top_idx[..., 0], E).float().mean(dim=(0, 1)))
+    (E,) each; no gradient through ``ce``.  The one-hot is a comparison with
+    ``arange(E)``, as ``jax.nn.one_hot`` writes it (``F.one_hot`` checks its
+    indices on the CPU alone, with a read to the host, so a traced step's
+    graph would depend on the device)."""
+    first = top_idx[..., 0, None] == torch.arange(E, device=top_idx.device)
+    return gates.mean(dim=(0, 1)), first.float().mean(dim=(0, 1))
 
 
 def _aux_from_means(me, ce, E: int):
