@@ -45,6 +45,14 @@ Phases, each printing one JSON line (or a few):
               and grad norms equal bit for bit, peaks rising full < keep-set
               < dots < none, and a planted fault (nothing kept, named dots)
               that must break that order
+  ac_search   MONET's activation-checkpointing search (knapsack at half the
+              activation bytes, NSGA-II) on the training graph of its GPT-2
+              builder at gemma3-1b's widths, twice (the same keep-sets); each
+              keep-set's save: policy and full train gemma3-1b as in remat:
+              modelled cycles and bytes beside step time, tokens/s and peak
+              memory, losses and grad norms equal to full's bit for bit, and
+              a planted fault (the GA's keep-set mapped to no family) whose
+              peak must differ from the GA policy's
   train_opt   gemma3-1b as in train, 4 steps with each of sgd_momentum,
               adafactor and galore_adamw: losses, launches, the state tree
               as opt.init gives it, a checkpoint read back bit for bit, the
@@ -130,9 +138,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.ckpt.store import latest_step, load_checkpoint  # noqa: E402
 from repro_torch.configs import get_config, get_shape, smoke_config  # noqa: E402
 from repro_torch.convert import tree_flatten_with_path, tree_map  # noqa: E402
-from repro_torch.core import remat_policy, schedule, tpu_v5e_like  # noqa: E402
+from repro_torch.core import (remat_policy, schedule, stored_activation_bytes,  # noqa: E402
+                              tpu_v5e_like)
 from repro_torch.core.trace import flop_count, recording  # noqa: E402
-from repro_torch.core.remat_policy import keepset_to_policy, resolve_remat  # noqa: E402
+from repro_torch.core.remat_policy import resolve_remat  # noqa: E402
 from repro_torch.data.pipeline import make_batch, make_tokens  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -140,6 +149,7 @@ from repro_torch.kernels import fused_adam as fad  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
+from repro_torch.launch import ac_search  # noqa: E402
 from repro_torch.launch.train import Trainer  # noqa: E402
 from repro_torch.models import attention, moe, ssm, transformer  # noqa: E402
 from repro_torch.models.transformer import (abstract_params, init_cache, init_params,  # noqa: E402
@@ -1557,9 +1567,8 @@ REMAT_ORDER = ("full", "keepset", "dots", "none")
 def remat_policies() -> dict[str, str]:
     """{reported name: ``cfg.remat``}; the keep-set's policy as the config
     knob names it (``save:`` and its families)."""
-    names = sorted(keepset_to_policy(REMAT_KEEPSET).names)
     return {"none": "none", "full": "full", "dots": "dots", "dots_no_batch": "dots_no_batch",
-            "keepset": "save:" + ",".join(names)}
+            "keepset": ac_search.policy_of(REMAT_KEEPSET)}
 
 
 def order_violations(peaks: dict) -> list[str]:
@@ -1614,6 +1623,88 @@ def phase_remat(cfg, profile: bool) -> dict:
         raise AssertionError(f"remat: losses and grad norms apart from none's by {diff}, "
                              f"peak order violations {violations}, the planted fault's "
                              f"{fault_violations} (must be some)")
+    return launches
+
+
+#: ac_search: the legs of MONET's search, and the kernels every run under
+#: their policies must launch
+AC_LEGS = ("knapsack", "ga")
+AC_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm", "rmsnorm_bwd", "fused_adam")
+
+
+def phase_ac_search(cfg) -> dict:
+    """MONET's activation-checkpointing search chooses what gemma3-1b keeps:
+    the knapsack at half the keep-all activation bytes and NSGA-II
+    (``repro_torch.launch.ac_search``) on the training graph of MONET's GPT-2
+    builder at gemma3-1b's widths, run twice from cold caches (the keep-sets
+    and modelled numbers must agree); each keep-set's ``save:`` policy and
+    ``full`` then train gemma3-1b at full width and depth, batch 4 × 4096,
+    ``REMAT_STEPS`` steps (launches as derived, each of ``AC_KERNELS`` at
+    least once; losses and grad norms equal ``full``'s bit for bit).  A
+    planted fault, the GA's keep-set through a ``family_of`` that knows no
+    family, gives ``nothing_saveable``, whose peak memory must differ from
+    the GA policy's.  Returns the launches by policy."""
+    tg, reduced = ac_search.search_graph(cfg, TRAIN_BATCH, SEQ)
+    keep_all = stored_activation_bytes(tg, tg.activations)
+    found = ac_search.search(tg, tpu_v5e_like())
+    again = ac_search.search(tg, tpu_v5e_like())
+    differ = [leg for leg in AC_LEGS
+              if replace(found[leg], seconds=0.0) != replace(again[leg], seconds=0.0)]
+    if differ or found["front"] != again["front"]:
+        raise AssertionError(f"ac_search: a second search differs in {differ or 'the front'}")
+
+    policies = {"full": "full", **{leg: found[leg].policy for leg in AC_LEGS}}
+    runs, launches = {}, {}
+    for remat in dict.fromkeys(policies.values()):
+        res, tr, launched = fit_and_check(replace(cfg, remat=remat), TRAIN_BATCH, REMAT_STEPS)
+        missing = [name for name in AC_KERNELS if not launched[name]]
+        if missing:
+            raise AssertionError(f"ac_search: {remat} launched no {missing}")
+        runs[remat] = res
+        del tr
+        torch.cuda.empty_cache()
+    for name, remat in policies.items():
+        launches[f"ac_search_{name}"] = runs[remat]["launches"]
+    with mock.patch.object(remat_policy, "family_of", lambda tensor_name: None):
+        fault_policy = remat_policy.keepset_to_policy(found["ga"].keep)
+    if fault_policy is not remat_policy.nothing_saveable:
+        raise AssertionError(f"ac_search: a keep-set of no family gave {fault_policy}")
+    with mock.patch.dict(remat_policy.POLICIES, {"ac_search_fault": fault_policy}):
+        fault, tr, _ = fit_and_check(replace(cfg, remat="ac_search_fault"), TRAIN_BATCH,
+                                     REMAT_STEPS)
+    del tr
+    torch.cuda.empty_cache()
+
+    full = runs["full"]
+    diff = {name: max(abs(a - b) for a, b in zip(
+        runs[remat]["losses"] + runs[remat]["grad_norms"],
+        full["losses"] + full["grad_norms"], strict=True))
+        for name, remat in policies.items()}
+    ga_peak = runs[policies["ga"]]["peak_memory_bytes"]
+    emit("ac_search", arch=cfg.name, layers=cfg.n_layers, batch=TRAIN_BATCH, seq=SEQ,
+         steps=REMAT_STEPS,
+         graph={"nodes": len(tg.graph), "activations": len(tg.activations),
+                "keep_all_bytes": keep_all, "reduced": reduced},
+         modelled="MONET's analytic model on tpu_v5e_like(), not a measurement of the card",
+         searches={leg: {**found[leg].summary(), "second_search_seconds": again[leg].seconds,
+                         "keep": list(found[leg].keep)} for leg in AC_LEGS},
+         ga_front_policies=dict(Counter(found["front"])),
+         same_policy=policies["knapsack"] == policies["ga"],
+         runs={name: {"remat": remat, **{key: runs[remat][key] for key in (
+             "losses", "grad_norms", "step_s", "step_s_median_after_first", "tokens_per_s",
+             "peak_memory_bytes", "launches_per_step")},
+             **({"modelled_stored_bytes": found[name].act_bytes,
+                 "modelled_cycles": found[name].latency} if name in AC_LEGS else {})}
+             for name, remat in policies.items()},
+         max_abs_diff_from_full=diff,
+         planted_fault={"what": "the GA's keep-set through a family_of that maps every name "
+                                "to None: nothing_saveable",
+                        "peak_memory_bytes": fault["peak_memory_bytes"],
+                        "ga_peak_memory_bytes": ga_peak})
+    if max(diff.values()) != 0.0 or fault["peak_memory_bytes"] == ga_peak:
+        raise AssertionError(f"ac_search: losses and grad norms apart from full's by {diff}, "
+                             f"or the planted fault's peak {fault['peak_memory_bytes']} equals "
+                             f"the GA policy's {ga_peak}")
     return launches
 
 
@@ -2564,7 +2655,7 @@ def phase_trace(gemma, mamba, olmoe) -> dict:
 # ---------------------------------------------------------------------------
 
 PHASES = ("env", "build", "kernels", "train", "train_ssm", "train_mla", "train_moe", "remat",
-          "train_opt", "train_mesh", "serve", "parity", "parity_ssm", "parity_serve",
+          "ac_search", "train_opt", "train_mesh", "serve", "parity", "parity_ssm", "parity_serve",
           "parity_moe", "parity_opt", "dryrun", "trace")
 
 
@@ -2629,6 +2720,9 @@ def main() -> None:
     if "remat" in phases:
         launches.update(phase_remat(gemma, args.profile))
         lap("remat")
+    if "ac_search" in phases:
+        launches.update(phase_ac_search(gemma))
+        lap("ac_search")
     if "train_opt" in phases:
         launches.update(phase_train_opt(gemma))
         lap("train_opt")

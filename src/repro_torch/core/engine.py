@@ -422,12 +422,26 @@ class EvalEngine:
     # -- batched population scoring -----------------------------------------
 
     def population_evaluator(self, tg, fusion: str = "manual"):
-        """The reference's memoized ``PopulationEvaluator`` lives in
-        ``core/batch.py``, which the port has not copied yet (ROADMAP A9,
-        ``core/batch.py`` first): raises ``NotImplementedError``."""
-        raise NotImplementedError(
-            "EvalEngine.population_evaluator needs core/batch.py, which the port "
-            "has not copied yet (ROADMAP A9, core/batch.py)")
+        """Memoized :class:`~repro.core.batch.PopulationEvaluator` for one
+        training graph.  Keyed on the graph's content fingerprint (plus the
+        activation list and fusion mode), so successive searches over the
+        same workload — GA restarts, DSE sweep rows, min-of-N benchmark
+        repeats — reuse already-scored phenotypes exactly like the schedule
+        memo reuses schedules (docs/engine.md, batched evaluation)."""
+        from .batch import PopulationEvaluator
+        self._check_gen()
+        key = (self.bind(tg.graph).fingerprint(),
+               tuple(tg.activations), fusion)
+        ev = self._pop_evals.get(key)
+        if ev is None:
+            ev = PopulationEvaluator(tg, self.hda, engine=self,
+                                     fusion=fusion)
+            self._pop_evals[key] = ev
+            if len(self._pop_evals) > self._pop_evals_cap:
+                self._pop_evals.popitem(last=False)
+        else:
+            self._pop_evals.move_to_end(key)
+        return ev
 
     def score_batch(self, jobs: list, processes: int | None = None) -> list:
         """Score ``(graph, hda-or-None, partition[, quotient])`` jobs in one

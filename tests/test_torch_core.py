@@ -2,8 +2,9 @@
 accelerators, cost_model, training_transform, memory, engine, verify,
 scheduling) held bit for bit against ``repro.core``.
 
-The port has no ``zoo`` yet, so each reference graph is copied field by field
-into the port's classes (``to_port``); every comparison is exact."""
+Each reference graph is copied field by field into the port's classes
+(``to_port``), so these modules are held apart from the port's own ``zoo``
+(``tests/test_torch_search.py``); every comparison is exact."""
 
 import dataclasses
 
@@ -183,21 +184,42 @@ def test_spaces_grid_and_interconnect_equal_reference():
 
 
 def test_exports_are_the_references_for_the_copied_modules():
-    """``repro_torch.core`` exports what ``repro.core`` exports from the nine
-    modules it holds, and nothing of the modules it has not copied."""
+    """``repro_torch.core`` exports what ``repro.core`` exports from the
+    modules it holds (the search layer among them), each name as the
+    reference exports it, and nothing of the modules it has not copied."""
     copied = {"graph", "accelerators", "cost_model", "training_transform", "memory",
-              "engine", "verify", "scheduling", "trace", "remat_policy"}
+              "engine", "verify", "scheduling", "trace", "remat_policy", "nsga2", "builders",
+              "zoo", "fusion", "fusion_search", "checkpointing", "batch"}
     want = {k for k in ref.__all__
             if getattr(getattr(ref, k), "__module__", "").rsplit(".", 1)[-1] in copied
             or k in {"EDGE_TPU_SPACE", "FUSEMAX_SPACE", "TPU_V5E", "MEM_CATEGORIES",
                      "OPTIMIZERS", "RULES"}}
     assert want <= set(core.__all__), sorted(want - set(core.__all__))
-    assert not {"GraphBuilder", "ga_checkpointing", "sweep", "evaluate_serve",
-                "gpt2_graph"} & set(core.__all__)
+    for k in want:
+        mine, theirs = getattr(core, k), getattr(ref, k)
+        assert type(mine).__name__ == type(theirs).__name__, k
+        assert getattr(mine, "__module__", "").rsplit(".", 1)[-1] == \
+            getattr(theirs, "__module__", "").rsplit(".", 1)[-1], k
+    assert {"GraphBuilder", "ga_checkpointing", "gpt2_graph", "search_fusion",
+            "nsga2"} <= set(core.__all__)
+    assert not {"sweep", "evaluate_serve", "ga_parallel", "degrade", "inject"} & \
+        set(core.__all__)
 
 
 def test_population_evaluator_waits_for_batch():
+    """``EvalEngine.population_evaluator``, which waited for ``core/batch.py``,
+    returns the port's ``PopulationEvaluator``; it scores the ``mlp_graph()``
+    training graph's keep-masks and genomes as the reference's does."""
+    from repro_torch.core.batch import PopulationEvaluator
     tg = tt.build_training_graph(to_port(zoo.mlp_graph()), "adam")
-    eng = core.get_engine(core.tpu_v5e_like())
-    with pytest.raises(NotImplementedError, match=r"core/batch\.py.*A9|A9.*core/batch\.py"):
-        eng.population_evaluator(tg)
+    ref_tg = ref.build_training_graph(zoo.mlp_graph(), "adam")
+    ev = core.get_engine(core.tpu_v5e_like()).population_evaluator(tg)
+    want = ref.get_engine(ref.tpu_v5e_like()).population_evaluator(ref_tg)
+    assert isinstance(ev, PopulationEvaluator)
+    rng = np.random.default_rng(0)
+    n = len(ev.acts)
+    assert ev.acts == want.acts
+    masks = [rng.random(n) < 0.5 for _ in range(3)]
+    genomes = [rng.integers(0, 3, n) for _ in range(3)]
+    assert ev.score_keep_batch(masks) == want.score_keep_batch(masks)
+    assert ev.score_policy_batch(genomes) == want.score_policy_batch(genomes)
