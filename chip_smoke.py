@@ -102,6 +102,24 @@ Phases, each printing one JSON line (or a few):
               peak memory, trace and schedule seconds beside the measured
               step time; a planted fault (the norm's hook switched off) that
               the count check must catch
+  resilience  MONET's resilience model on the card's own times: gemma3-1b as
+              in train, 3 steps (the step time), a synchronous save_checkpoint
+              of params and AdamW state to $TMPDIR (write seconds, bytes on
+              disk) and a fresh Trainer's restore_or_init (read seconds; every
+              leaf bit for bit, and a planted fault, one leaf one ulp off,
+              that the check must catch); the port's core then picks the
+              checkpoint interval for 1 and 256 cards under
+              datacenter_fault_model() (each k held against an exhaustive
+              enumeration of Daly's efficiency), beside MONET's own prediction
+              (evaluate_goodput on gemma3-1b's training graph), its six 4-chip
+              strategies and degrade(dp4, 1 chip) -> dp3 with no findings and
+              no fresh signing
+  monet_cli   python -m repro_torch.verify (the acceptance matrix),
+              python -m repro_torch.core.faultinject --seed 0 (21/21 caught) and
+              python -m repro_torch.launch.serve on both sites, side by side:
+              exit codes and host seconds; MONET's KV bytes a token at
+              gemma3-1b's widths beside the port's real cache (init_cache,
+              8 x 1024, as serve allocates it)
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 non-zero and the last line is not printed.  There is no CPU fallback.
@@ -121,6 +139,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from unittest import mock
 
@@ -135,11 +154,17 @@ if not torch.cuda.is_available():
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.ckpt.store import latest_step, load_checkpoint  # noqa: E402
+from repro_torch.ckpt.store import latest_step, load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs import get_config, get_shape, smoke_config  # noqa: E402
 from repro_torch.convert import tree_flatten_with_path, tree_map  # noqa: E402
-from repro_torch.core import (remat_policy, schedule, stored_activation_bytes,  # noqa: E402
-                              tpu_v5e_like)
+from repro_torch.core import (ParallelStrategy, datacenter_cluster,  # noqa: E402
+                              datacenter_fault_model, degrade, evaluate_goodput,
+                              evaluate_parallel, kv_bytes_per_token,
+                              optimal_checkpoint_interval, remat_policy, schedule,
+                              stored_activation_bytes, strategy_space, tpu_v5e_like)
+from repro_torch.core import resilience  # noqa: E402
+from repro_torch.core.engine import get_engine, sign_count  # noqa: E402
+from repro_torch.core.fusion_search import fusion_partition  # noqa: E402
 from repro_torch.core.trace import flop_count, recording  # noqa: E402
 from repro_torch.core.remat_policy import resolve_remat  # noqa: E402
 from repro_torch.data.pipeline import make_batch, make_tokens  # noqa: E402
@@ -2653,10 +2678,268 @@ def phase_trace(gemma, mamba, olmoe) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# resilience, monet_cli: MONET's fault model on the card's own times
+# ---------------------------------------------------------------------------
+
+#: resilience: gemma3-1b steps before the checkpoint (step time: the median of
+#: the last two), the cluster sizes MONET's interval is picked for (one card;
+#: the dry-run's (16, 16) mesh), the largest range ``optimal_checkpoint_interval``
+#: enumerates whole (resilience.py), and how close its geometric grid must come
+#: to the exhaustive optimum beyond that (its docstring's "fraction of a percent")
+RES_STEPS = 3
+RES_CHIPS = (1, 256)
+RES_EXHAUSTIVE = 1 << 17
+RES_EXACT_RTOL, RES_GRID_RTOL = 1e-12, 1e-3
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers of its width (floats compared bit for bit:
+    NaN equal to itself, −0 apart from +0)."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def first_mismatch(saved, restored) -> str | None:
+    """The path of the first leaf of ``restored`` whose dtype, shape or bits
+    differ from ``saved``'s, or None."""
+    for (key, a), b in zip(tree_flatten_with_path(saved).items(),
+                           tree_flatten_with_path(restored).values(), strict=True):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(bits(a), bits(b)):
+            return key
+    return None
+
+
+def one_ulp_off(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` whose first element is one ulp away (its bits + 1)."""
+    out = t.clone()
+    bits(out.view(-1)[:1]).add_(1)
+    return out
+
+
+def exhaustive_interval(plan, t_step, write_s, recovery_s, mtbf_s) -> dict:
+    """``plan``'s efficiency against the best of Daly's efficiency
+    (``resilience._segment_efficiency``) over every k in 1 … max(8·k_YD, 64):
+    equal within ``RES_EXACT_RTOL`` where the function enumerates that range
+    itself, within ``RES_GRID_RTOL`` where it takes its geometric grid."""
+    k_yd = max(int(round(plan.tau_yd_s / t_step)), 1)
+    hi = max(8 * k_yd, 64)
+    ks = np.arange(1, hi + 1, dtype=np.int64)
+    eff = resilience._segment_efficiency(ks * t_step, write_s, recovery_s, mtbf_s)
+    i = int(np.argmax(eff))
+    best = float(eff[i])
+    enumerated = hi <= RES_EXHAUSTIVE
+    rel = (best - plan.efficiency) / best
+    tol = RES_EXACT_RTOL if enumerated else RES_GRID_RTOL
+    if not 0.0 <= rel <= tol:
+        raise AssertionError(f"resilience: k {plan.interval_steps} at efficiency "
+                             f"{plan.efficiency!r}, the exhaustive best k {ks[i]} at {best!r} "
+                             f"over 1..{hi} (relative gap {rel:.3e} > {tol:g})")
+    return {"search": "exhaustive" if enumerated else "geometric grid", "k_yd": k_yd,
+            "range": hi, "exhaustive_best_k": int(ks[i]), "exhaustive_best_efficiency": best,
+            "relative_gap": rel, "tol": tol}
+
+
+def checkpoint_intervals(t_step, write_s, read_s, fm) -> dict:
+    """``optimal_checkpoint_interval`` for each of ``RES_CHIPS`` (MTBF of that
+    many chips of ``fm``, recovery ``fm.restart_s`` + ``read_s``), each k held
+    against the exhaustive enumeration."""
+    out = {}
+    for n in RES_CHIPS:
+        args = (t_step, write_s, fm.restart_s + read_s, fm.cluster_mtbf_s(n))
+        plan = optimal_checkpoint_interval(*args)
+        out[n] = {"interval_steps": plan.interval_steps, "interval_s": plan.interval_s,
+                  "efficiency": plan.efficiency, "tau_yd_s": plan.tau_yd_s,
+                  "recovery_s": args[2], "mtbf_s": args[3],
+                  "check": exhaustive_interval(plan, *args)}
+    return out
+
+
+def monet_parallel(tg) -> dict:
+    """``evaluate_parallel`` of ``tg`` under each strategy of 4 chips on
+    ``datacenter_cluster(4)``, then ``degrade(dp4, 1 chip)``: dp3, no
+    findings, and its stage graphs rescheduled with no fresh signing."""
+    cluster = datacenter_cluster(n_chips=4)
+    t0 = time.perf_counter()
+    strategies = {}
+    for strat in strategy_space(4):
+        r = evaluate_parallel(tg, cluster, strat)
+        strategies[strat.label] = {"cycles": r.latency, "wire_bytes": r.wire_bytes,
+                                   "peak_mem": r.peak_mem, "feasible": r.feasible}
+    parallel_s = time.perf_counter() - t0
+    engine = get_engine(cluster.chip)
+    t0 = time.perf_counter()
+    d = degrade(tg, cluster, ParallelStrategy(data=4), failed_chips=1, engine=engine)
+    degrade_s = time.perf_counter() - t0
+    before = sign_count()
+    for sg in d.plan.stage_graphs:
+        part, quotient = fusion_partition(sg, d.cluster.chip, "manual", None, engine)
+        schedule(sg, d.cluster.chip, part, engine=engine, quotient=quotient)
+    fresh = sign_count() - before
+    if d.strategy.label != "dp3" or d.findings or fresh:
+        raise AssertionError(f"resilience: degrade(dp4, 1) gave {d.strategy.label}, "
+                             f"findings {d.findings}, {fresh} fresh signings")
+    return {"cluster": "datacenter_cluster(4), tpu_v5e_like() chips, 16 GiB each",
+            "strategies": strategies, "host_s": parallel_s,
+            "degrade": {"from": "dp4", "failed_chips": 1, "to": d.strategy.label,
+                        "findings": len(d.findings), "fresh_signings": fresh,
+                        "cycles": d.result.latency, "feasible": d.result.feasible,
+                        "host_s": degrade_s}}
+
+
+def phase_resilience(cfg) -> dict:
+    """MONET's resilience model on the card's own times.  gemma3-1b as in
+    train, ``RES_STEPS`` steps (the step time); a synchronous
+    ``save_checkpoint`` of params and AdamW state to ``$TMPDIR`` (write_s,
+    bytes on disk); a fresh ``Trainer``'s ``restore_or_init`` from it (read_s;
+    every leaf equal to the saved one bit for bit, and a planted fault, one
+    leaf one ulp off, that the check must catch).  Then the port's core picks
+    the checkpoint interval for 1 and 256 cards from these times (each k held
+    against an exhaustive enumeration), beside MONET's own prediction
+    (``evaluate_goodput`` on gemma3-1b's training graph, ``datacenter_cluster(1)``)
+    and its 4-chip strategies and dp4 → dp3 degrade.  Returns the launches."""
+    res, tr, launches = fit_and_check(cfg, TRAIN_BATCH, RES_STEPS)
+    params, opt_state = tr._last_state
+    saved = {"params": params, "opt": opt_state}
+    t_step = res["step_s_median_after_first"]
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt_dir, RES_STEPS, saved)
+        write_s = time.perf_counter() - t0
+        files = {name: os.path.getsize(os.path.join(path, name)) for name in os.listdir(path)}
+        t0 = time.perf_counter()
+        with open(os.path.join(path, "arrays.npz"), "rb") as f:
+            os.fsync(f.fileno())
+        fsync_s = time.perf_counter() - t0
+        payload = sum(t.numel() * t.element_size() for t in tree_flatten_with_path(saved).values())
+
+        fresh = Trainer(cfg, get_shape("train_4k"), device=DEV, ckpt_dir=ckpt_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p2, o2, start = fresh.restore_or_init()
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        fresh.ckpt.close()
+        restored = {"params": p2, "opt": o2}
+        # the part of read_s a restart pays whether or not it reads a checkpoint
+        t0 = time.perf_counter()
+        fresh.init_state()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        bad = first_mismatch(saved, restored)
+        if start != RES_STEPS or bad is not None:
+            raise AssertionError(f"resilience: restored step {start}, leaf {bad} differs")
+        key, leaf = next(iter(tree_flatten_with_path(p2).items()))
+        planted = first_mismatch(saved, {"params": tree_map(
+            lambda t: one_ulp_off(t) if t is leaf else t, p2), "opt": o2})
+        if planted != f"params/{key}":
+            raise AssertionError(f"resilience: the planted fault (params/{key} one ulp off) "
+                                 f"read {planted}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del tr, fresh, saved, restored, params, opt_state, p2, o2
+    torch.cuda.empty_cache()
+
+    fm = datacenter_fault_model()
+    measured = checkpoint_intervals(t_step, write_s, read_s, fm)
+    tg, reduced = ac_search.search_graph(cfg, TRAIN_BATCH, SEQ)
+    t0 = time.perf_counter()
+    gp = evaluate_goodput(tg, datacenter_cluster(n_chips=1), fault=fm)
+    goodput_s = time.perf_counter() - t0
+    modelled = {"ckpt_bytes": gp.ckpt_bytes, "write_s": gp.ckpt.write_s,
+                "read_s": gp.ckpt.read_s, "step_s": gp.step_s,
+                "interval_steps": gp.ckpt.interval_steps, "efficiency": gp.efficiency,
+                "host_s": goodput_s,
+                # the card's step with MONET's δ and read-back, for each cluster size
+                "intervals_at_measured_step": checkpoint_intervals(
+                    t_step, gp.ckpt.write_s, gp.ckpt.read_s, fm)}
+    emit("resilience", arch=cfg.name, layers=cfg.n_layers, batch=TRAIN_BATCH, seq=SEQ,
+         remat=cfg.remat, steps=RES_STEPS, losses=res["losses"], step_s=res["step_s"],
+         step_s_median_last_two=t_step,
+         checkpoint={"write_s": write_s, "fsync_after_write_s": fsync_s, "read_s": read_s,
+                     "init_state_s": init_s,
+                     "payload_bytes": payload, "bytes_on_disk": sum(files.values()),
+                     "files": files, "dir": "$TMPDIR", "bitexact": True,
+                     "planted_fault": {"what": f"params/{key}: its first element one ulp off",
+                                       "caught_at": planted}},
+         fault_model={"name": "datacenter_fault_model()", "mtbf_hours": fm.mtbf_hours,
+                      "restart_s": fm.restart_s},
+         intervals_measured=measured,
+         monet={"model": "MONET's analytic model (evaluate_goodput) on datacenter_cluster(1): "
+                         "tpu_v5e_like() chips, not the card",
+                "graph": {"nodes": len(tg.graph), "reduced": reduced}, **modelled,
+                "measured_over_modelled": {"write_s": write_s / gp.ckpt.write_s,
+                                           "bytes": payload / gp.ckpt_bytes}},
+         parallel=monet_parallel(tg))
+    return launches
+
+
+#: monet_cli: the port's MONET command lines (name, what follows ``-m``, a line
+#: each must print); each must exit 0
+MONET_CLI = (
+    ("verify", ["repro_torch.verify"], "all clean: 0 findings"),
+    ("faultinject", ["repro_torch.core.faultinject", "--seed", "0"],
+     "21/21 injected fault classes caught (seed 0)"),
+    ("serve_datacenter", ["repro_torch.launch.serve", "--site", "datacenter", "--chips", "4",
+                          "--slots", "16"], "max KEEP slots"),
+    ("serve_edge_offload", ["repro_torch.launch.serve", "--site", "edge", "--chips", "4",
+                            "--slots", "16", "--policy", "offload"], "max KEEP slots"),
+)
+
+
+def phase_monet_cli(cfg) -> None:
+    """``python -m`` each of ``MONET_CLI`` on the card's host, side by side
+    (most of each is the interpreter's start): exit 0 and its line, host
+    seconds; then MONET's KV bytes a token at ``cfg``'s widths (its
+    GPT-2-shaped serving graph) beside the port's real cache, as ``serve``
+    allocates it (``init_cache``, ``SERVE_BATCH`` × ``SERVE_MAX_SEQ``)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def run(argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *argv], env=env, capture_output=True,
+                              text=True, timeout=300)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(MONET_CLI)) as pool:
+        done = list(pool.map(run, [argv for _, argv, _ in MONET_CLI]))
+    runs = {}
+    for (name, argv, want), (proc, secs) in zip(MONET_CLI, done, strict=True):
+        if proc.returncode or want not in proc.stdout:
+            raise AssertionError(f"monet_cli {name}: exit {proc.returncode}, no {want!r}\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        lines = proc.stdout.strip().splitlines()
+        runs[name] = {"argv": " ".join(argv), "exit": proc.returncode, "host_s": secs,
+                      "lines": len(lines),
+                      "report": lines if name.startswith("serve") else lines[-1]}
+    model = {"d_model": cfg.d_model, "n_layers": cfg.n_layers, "n_heads": cfg.n_heads,
+             "vocab": cfg.vocab}
+    monet_kv = kv_bytes_per_token(model)
+    cache = init_cache(cfg, SERVE_BATCH, SERVE_MAX_SEQ, DEV)
+    leaves = list(tree_flatten_with_path(cache).items())
+    cache_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    shapes = Counter(f"{tuple(t.shape)} {str(t.dtype).removeprefix('torch.')}"
+                     for _, t in leaves)
+    del cache
+    torch.cuda.empty_cache()
+    port_kv = cache_bytes / (SERVE_BATCH * SERVE_MAX_SEQ)
+    emit("monet_cli", runs=runs,
+         kv_bytes_per_token={
+             "monet": monet_kv, "monet_model": f"GPT-2-shaped at {cfg.name}'s widths: "
+                                               f"{model}, MHA, no window, bfloat16",
+             "port_cache_bytes": cache_bytes, "port_cache_leaves": dict(shapes),
+             "port_per_token": port_kv, "port_cache": f"init_cache({cfg.name}, "
+                                                      f"{SERVE_BATCH}, {SERVE_MAX_SEQ})",
+             "monet_over_port": monet_kv / port_kv})
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("env", "build", "kernels", "train", "train_ssm", "train_mla", "train_moe", "remat",
           "ac_search", "train_opt", "train_mesh", "serve", "parity", "parity_ssm", "parity_serve",
-          "parity_moe", "parity_opt", "dryrun", "trace")
+          "parity_moe", "parity_opt", "dryrun", "trace", "resilience", "monet_cli")
 
 
 def main() -> None:
@@ -2753,6 +3036,12 @@ def main() -> None:
     if "trace" in phases:
         launches.update(phase_trace(gemma, mamba, olmoe))
         lap("trace")
+    if "resilience" in phases:
+        launches["resilience"] = phase_resilience(gemma)
+        lap("resilience")
+    if "monet_cli" in phases:
+        phase_monet_cli(gemma)
+        lap("monet_cli")
 
     emit("done", phases=phases, seconds=round(time.time() - t0, 1), phase_seconds=seconds)
     if timed is not None and {"train", "train_ssm"} <= set(launches):

@@ -2,13 +2,13 @@
 copies of the reference's numpy modules (``graph``, ``accelerators``,
 ``cost_model``, ``training_transform``, ``memory``, ``engine``, ``verify``,
 ``scheduling``), its search layer (``nsga2``, ``builders``, ``zoo``,
-``fusion``, ``fusion_search``, ``checkpointing``, ``batch``), the front-end
-that turns a PyTorch step into its IR (``trace``), and ``remat_policy``, the
-bridge from MONET's activation-checkpointing keep-sets to the training step's
-selective recompute.  The rest of the reference's core (``parallel``,
-``resilience``, ``serving``, ``dse``, ``faultinject``) follows in later
-slices (ROADMAP A9).  Exports what the reference's ``core/__init__.py``
-exports from these modules."""
+``fusion``, ``fusion_search``, ``checkpointing``, ``batch``), its "edge to
+data centers" half (``parallel``, ``resilience``, ``serving``, ``dse``,
+``faultinject``), the front-end that turns a PyTorch step into its IR
+(``trace``), and ``remat_policy``, the bridge from MONET's
+activation-checkpointing keep-sets to the training step's selective
+recompute.  Exports what the reference's ``core/__init__.py`` exports, name
+for name."""
 
 from .accelerators import (EDGE_TPU_SPACE, FUSEMAX_SPACE, TPU_V5E,
                            ClusterSpec, CoreSpec, FaultModel, HDASpec,
@@ -26,6 +26,11 @@ from .checkpointing import (ACResult, ACSolution, PolicyResult,
                             uniform_policy)
 from .cost_model import (CostModel, NodeCost, collective_wire, comm_cycles,
                          comm_node_cost, dma_cycles, dma_node_cost)
+from .dse import (DSEPoint, ParallelPoint, ResiliencePoint, ServePoint,
+                  compute_resource, pareto_front, spread, sweep,
+                  sweep_parallel, sweep_resilience, sweep_serve)
+from .faultinject import FAULTS, FaultSpec, InjectionReport, inject, \
+    run_campaign
 from .engine import (EvalEngine, GraphSigs, clear_engines, get_engine,
                      graph_sigs)
 from .fusion import (FusionConfig, GroupChecker, enumerate_candidates,
@@ -43,8 +48,17 @@ from .memory import (MEM_CATEGORIES, ActivationPolicy, LifetimePlan,
                      static_breakdown, tensor_category, tile_working_set)
 from .nsga2 import (NSGA2Result, crowding_distance, fast_non_dominated_sort,
                     load_snapshot, nsga2, nsga2_int, save_snapshot)
+from .parallel import (ParallelPlan, ParallelResult, ParallelStrategy,
+                       evaluate_parallel, ga_parallel, graph_wire_bytes,
+                       nearest_strategy, parallelize, strategy_space)
 from .remat_policy import keepset_to_policy, policy_from_keep, resolve_remat
+from .resilience import (CheckpointPlan, DegradeResult, GoodputResult,
+                         degrade, evaluate_goodput,
+                         optimal_checkpoint_interval, resolve_fault)
 from .scheduling import ScheduleResult, quotient_dag, schedule
+from .serving import (DEFAULT_MIX, GPT2_SMALL, RequestClass, RequestMix,
+                      ServeResult, evaluate_serve, kv_bytes_per_token,
+                      max_keep_slots)
 from .trace import trace_fn, trace_model
 from .training_transform import (OPTIMIZERS, TrainingGraph,
                                  build_training_graph)

@@ -7,6 +7,7 @@ Each reference graph is copied field by field into the port's classes
 (``tests/test_torch_search.py``); every comparison is exact."""
 
 import dataclasses
+import enum
 
 import numpy as np
 import pytest
@@ -72,7 +73,13 @@ KINDS = [k + t for k in GRAPHS for t in ("", "_train")]
 
 
 def as_plain(x):
-    """Dataclasses, numpy arrays and dicts as comparable plain values."""
+    """Dataclasses, numpy arrays, dicts, enums and graphs as comparable plain
+    values (an enum by its class and member name, a ``WorkloadGraph`` by
+    ``canonical``), so the port's objects compare with the reference's."""
+    if type(x).__name__ == "WorkloadGraph":
+        return ("WorkloadGraph", canonical(x))
+    if isinstance(x, enum.Enum):
+        return (type(x).__name__, x.name)
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return {f.name: as_plain(getattr(x, f.name)) for f in dataclasses.fields(x)}
     if isinstance(x, np.ndarray):
@@ -184,26 +191,97 @@ def test_spaces_grid_and_interconnect_equal_reference():
 
 
 def test_exports_are_the_references_for_the_copied_modules():
-    """``repro_torch.core`` exports what ``repro.core`` exports from the
-    modules it holds (the search layer among them), each name as the
-    reference exports it, and nothing of the modules it has not copied."""
-    copied = {"graph", "accelerators", "cost_model", "training_transform", "memory",
-              "engine", "verify", "scheduling", "trace", "remat_policy", "nsga2", "builders",
-              "zoo", "fusion", "fusion_search", "checkpointing", "batch"}
-    want = {k for k in ref.__all__
-            if getattr(getattr(ref, k), "__module__", "").rsplit(".", 1)[-1] in copied
-            or k in {"EDGE_TPU_SPACE", "FUSEMAX_SPACE", "TPU_V5E", "MEM_CATEGORIES",
-                     "OPTIMIZERS", "RULES"}}
-    assert want <= set(core.__all__), sorted(want - set(core.__all__))
-    for k in want:
+    """``repro_torch.core`` exports what ``repro.core`` exports, now that every
+    module of it has its copy: each name as the reference exports it (same
+    module, same kind), the five modules of the last slice included."""
+    assert set(core.__all__) == set(ref.__all__), \
+        sorted(set(core.__all__) ^ set(ref.__all__))
+    for k in ref.__all__:
         mine, theirs = getattr(core, k), getattr(ref, k)
         assert type(mine).__name__ == type(theirs).__name__, k
         assert getattr(mine, "__module__", "").rsplit(".", 1)[-1] == \
             getattr(theirs, "__module__", "").rsplit(".", 1)[-1], k
-    assert {"GraphBuilder", "ga_checkpointing", "gpt2_graph", "search_fusion",
-            "nsga2"} <= set(core.__all__)
-    assert not {"sweep", "evaluate_serve", "ga_parallel", "degrade", "inject"} & \
-        set(core.__all__)
+    assert {"sweep", "evaluate_serve", "ga_parallel", "degrade", "inject", "parallel",
+            "resilience", "serving", "dse", "faultinject"} <= set(core.__all__)
+
+
+def test_public_surface_equals_the_references():
+    """The port's side of ``tests/test_public_api.py``: the surface that file
+    pins resolves in ``repro_torch.core``, and the two ``__all__`` are one set."""
+    import test_public_api
+    assert set(core.__all__) == set(ref.__all__)
+    for name in sorted(test_public_api.EXPECTED):
+        assert getattr(core, name, None) is not None, name
+    assert set(core.RULES) >= {"M030", "M031", "M032", "C009"}
+
+
+# -- parallel plans under the verifier (tests/test_verify.py) ---------------------------
+
+
+@pytest.fixture(scope="module")
+def vtg():
+    return tt.build_training_graph(core.mlp_graph(batch=8, widths=(32, 32)), "adam")
+
+
+def plan_for(tg, monkeypatch):
+    """A dp2×tp2×pp2 plan built under ``REPRO_SANITIZE`` (the rewrite cache
+    bypassed), so the corruptions below touch this plan's stage graphs and
+    never the cached ones other tests are served."""
+    with monkeypatch.context() as m:
+        m.setenv("REPRO_SANITIZE", "1")
+        strat = core.ParallelStrategy(2, 2, 2, microbatches=4)
+        return core.parallelize(tg, strat, core.edge_cluster(strat.chips))
+
+
+def codes(findings):
+    return {f.rule for f in findings}
+
+
+def test_clean_parallel_plan(vtg):
+    # the reference's rewrite cache may hold this very key with stage graphs
+    # that tests/test_verify.py's M030-M032 corrupted in place
+    ref.parallel._REWRITES.clear()
+    strat = core.ParallelStrategy(2, 2, 2, microbatches=4)
+    cluster = core.edge_cluster(strat.chips)
+    plan = core.parallelize(vtg, strat, cluster)
+    assert verify.verify_parallel(vtg, plan) == []
+    res = core.evaluate_parallel(vtg, cluster, strat)
+    assert res.findings == []
+    ref_tg = ref.build_training_graph(ref.mlp_graph(batch=8, widths=(32, 32)), "adam")
+    rstrat = ref.ParallelStrategy(2, 2, 2, microbatches=4)
+    assert as_plain(res) == as_plain(ref.evaluate_parallel(ref_tg, ref.edge_cluster(8), rstrat))
+    assert as_plain(plan) == as_plain(ref.parallelize(ref_tg, rstrat, ref.edge_cluster(8)))
+
+
+def test_m030_collective_degree(vtg, monkeypatch):
+    plan = plan_for(vtg, monkeypatch)
+    sg, name = next((sg, n) for sg in plan.stage_graphs for n, nd in sg.nodes.items()
+                    if nd.op == "all_reduce" and nd.outputs
+                    and nd.outputs[0].endswith(".tpar"))
+    dims = dict(sg.nodes[name].dims)
+    dims["P"] = 3
+    sg.retune_node(name, dims=dims)
+    assert "M030" in codes(verify.verify_parallel(vtg, plan))
+
+
+def test_m031_send_recv_asymmetry(vtg, monkeypatch):
+    plan = plan_for(vtg, monkeypatch)
+    sg = plan.stage_graphs[1]
+    name = next(n for n in sg.nodes if n.startswith("recv:"))
+    nd = sg.nodes.pop(name)
+    for t in nd.outputs:
+        sg.producer.pop(t, None)
+    assert "M031" in codes(verify.verify_parallel(vtg, plan))
+
+
+def test_m032_shard_imbalance(vtg, monkeypatch):
+    plan = plan_for(vtg, monkeypatch)
+    w = next(iter(plan.sharded_params))
+    for sg in plan.stage_graphs:
+        spec = sg.tensors.get(w)
+        if spec is not None:
+            sg.replace_tensor(dataclasses.replace(spec, shape=tuple(s * 2 for s in spec.shape)))
+    assert "M032" in codes(verify.verify_parallel(vtg, plan))
 
 
 def test_population_evaluator_waits_for_batch():

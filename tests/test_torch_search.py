@@ -493,18 +493,17 @@ def test_unknown_fusion_mode_raises(tg):
 
 
 def test_fusion_modes_as_the_reference_sweep_schedules_them():
-    """``tests/test_fusion_search.py::test_sweep_fusion_modes`` without
-    ``dse`` (not in the port yet): each mode's partition from
-    ``fusion_partition`` scheduled on the sweep's one design point gives the
-    latency the reference's ``sweep`` reports, and fusing is no slower."""
+    """``tests/test_fusion_search.py::test_sweep_fusion_modes`` through the
+    port's ``dse.sweep``: one point a mode, fusing is no slower than not, and
+    each point (schedule and verifier findings) is the reference's."""
     space = {"x_pes": [4], "y_pes": [4], "simd_units": [64], "lanes": [4]}
     cfg = dict(pop_size=6, generations=2)
     lat = {}
     for mode in ("none", "greedy", "search"):
-        g, hda = core.mlp_graph(), core.edge_tpu(x_pes=4, y_pes=4, simd_units=64, lanes=4)
-        part, quotient = core.fusion_partition(g, hda, mode, core.FusionSearchConfig(**cfg))
-        lat[mode] = core.schedule(g, hda, part, quotient=quotient).latency
-        (pt,) = ref_dse.sweep(ref.edge_tpu, space, {"mlp": ref.mlp_graph()}, fusion=mode,
-                              fusion_cfg=ref.FusionSearchConfig(**cfg))
-        assert lat[mode] == pt.results["mlp"].latency, mode
+        pts = core.sweep(core.edge_tpu, space, {"mlp": core.mlp_graph()}, fusion=mode,
+                         fusion_cfg=core.FusionSearchConfig(**cfg))
+        assert len(pts) == 1
+        lat[mode] = pts[0].results["mlp"].latency
+        same(pts, ref_dse.sweep(ref.edge_tpu, space, {"mlp": ref.mlp_graph()}, fusion=mode,
+                                fusion_cfg=ref.FusionSearchConfig(**cfg)))
     assert lat["greedy"] <= lat["none"] and lat["search"] <= lat["none"]

@@ -27,8 +27,10 @@ SRC = os.path.join(ROOT, "src")
 
 def test_import_isolation():
     """Importing the port and every one of its modules (the distribution and
-    dry-run modules, the copied analytic core with its tracer and its search
-    layer among them) loads neither jax nor anything of the JAX package."""
+    dry-run modules, the copied analytic core with its tracer, its search
+    layer, its parallel / resilience / serving / DSE / fault-injection modules
+    and the two MONET command lines among them) loads neither jax nor
+    anything of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -36,13 +38,15 @@ def test_import_isolation():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.') or m == 'jaxlib']\n"
-        "assert len(names) >= 54, names\n"
+        "assert len(names) >= 70, names\n"
         "need = {'repro_torch.distributed.sharding', 'repro_torch.launch.mesh', "
         "'repro_torch.launch.cell', 'repro_torch.launch.dryrun', "
-        "'repro_torch.launch.ac_search'} | {'repro_torch.core.' + m "
+        "'repro_torch.launch.ac_search', 'repro_torch.launch.serve', 'repro_torch.verify'} "
+        "| {'repro_torch.core.' + m "
         "for m in ('graph', 'accelerators', 'cost_model', 'training_transform', 'memory', "
         "'engine', 'verify', 'scheduling', 'trace', 'nsga2', 'builders', 'zoo', 'fusion', "
-        "'fusion_search', 'checkpointing', 'batch')}\n"
+        "'fusion_search', 'checkpointing', 'batch', 'parallel', 'resilience', 'serving', "
+        "'dse', 'faultinject')}\n"
         "assert need <= set(names), need - set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
