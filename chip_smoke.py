@@ -120,6 +120,22 @@ Phases, each printing one JSON line (or a few):
               exit codes and host seconds; MONET's KV bytes a token at
               gemma3-1b's widths beside the port's real cache (init_cache,
               8 x 1024, as serve allocates it)
+  examples    the twins of the nine examples (examples/port/), in process:
+              train_lm's LM-100M at full size as its docstring runs it
+              (--steps 120, then --steps 300 on the same --ckpt-dir, resuming
+              at step 100 once step 120's commit is removed): step time,
+              tokens/s, peak memory, checkpoints (seconds, bytes), losses,
+              launches a step (fused_adam only), the replayed steps 101-120
+              equal to the first call's; the same with use_flash, 8 steps:
+              losses and grad norms within 1e-3 and 1e-2 relative of the
+              plain run's, and again with the flash output zeroed (a planted
+              fault that must read above them), flash and rmsnorm launches,
+              each kernel at LM-100M's shapes against its plain version with
+              planted faults (fused_adam over LM-100M's parameter tree, bit
+              for bit), timed beside its bound, plain version and library
+              call; checkpointing_ga on the CPU and the
+              card (the same front, loss 32768 and grad norm 512); the seven
+              host twins side by side (exit 0, CSV rows, host seconds)
 Then the ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
 non-zero and the last line is not printed.  There is no CPU fallback.
@@ -129,7 +145,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import ctypes
+import importlib.util
+import io
 import json
 import math
 import os
@@ -154,6 +173,7 @@ if not torch.cuda.is_available():
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.ckpt import store as ckpt_store  # noqa: E402
 from repro_torch.ckpt.store import latest_step, load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs import get_config, get_shape, smoke_config  # noqa: E402
 from repro_torch.convert import tree_flatten_with_path, tree_map  # noqa: E402
@@ -175,6 +195,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
 from repro_torch.launch import ac_search  # noqa: E402
+from repro_torch.launch import train as train_module  # noqa: E402
 from repro_torch.launch.train import Trainer  # noqa: E402
 from repro_torch.models import attention, moe, ssm, transformer  # noqa: E402
 from repro_torch.models.transformer import (abstract_params, init_cache, init_params,  # noqa: E402
@@ -277,12 +298,13 @@ def phase_env() -> None:
          device_count=torch.cuda.device_count(), nvidia_smi=smi())
 
 
-def norm_widths(gemma, mamba, mla, moe_cfg) -> tuple[int, ...]:
+def norm_widths(gemma, mamba, mla, moe_cfg, lm100m) -> tuple[int, ...]:
     """The widths the training and serve paths normalise through
-    ``ops.rmsnorm``: the block norms, mamba's gated norm and MLA's ``q_ln``
-    and ``kv_ln``."""
+    ``ops.rmsnorm``: the block norms, mamba's gated norm, MLA's ``q_ln``
+    and ``kv_ln``, and LM-100M's (``examples`` with ``use_flash``)."""
     return tuple(sorted({gemma.d_model, mamba.d_model, mamba.d_inner, mla.d_model,
-                         mla.mla.q_lora_rank, mla.mla.kv_lora_rank, moe_cfg.d_model}))
+                         mla.mla.q_lora_rank, mla.mla.kv_lora_rank, moe_cfg.d_model,
+                         lm100m.d_model}))
 
 
 def memory_bound_kernels(widths) -> dict[str, dict[str, int]]:
@@ -840,6 +862,36 @@ def time_rotating(fn, sets, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def last_block_rows(d, rows, bf16, bwd, device) -> torch.Tensor:
+    """The rows the grid's last block takes (``rn.grid``: block ``b`` takes
+    ``b·rows_at_once + i + k·blocks·rows_at_once``)."""
+    geo = rn.grid(d, rows, bf16, bwd, device.index)
+    blocks, at_once = geo["blocks"], geo["rows_at_once"]
+    last = torch.arange((blocks - 1) * at_once, rows, blocks * at_once, device=device)
+    mine = (last[:, None] + torch.arange(at_once, device=device)).flatten()
+    return mine[mine < rows]
+
+
+def rmsnorm_fwd_faults(x, scale, y_p) -> dict:
+    """What the forward's row check reads on a fault the kernel could have,
+    built from the plain formula: the grid's last block normalising its rows
+    by a sum of squares that holds the first half of each row only (a row
+    reduction one step short), rounded as the kernel rounds.  Must read
+    above ``BF16_ROW_RTOL``."""
+    d = x.shape[-1]
+    rows = x.numel() // d
+    mine = last_block_rows(d, rows, x.dtype == torch.bfloat16, False, x.device)
+    xf, want = x.float().reshape(rows, d)[mine], y_p.reshape(rows, d)[mine]
+    r = torch.rsqrt(xf[:, :d // 2].square().sum(dim=-1, keepdim=True) / d + 1e-6)
+    out = {"half_row_sum_of_squares": {"y_row_rel": row_rel_err((xf * r * (1.0 + scale)
+                                                                 ).to(x.dtype), want),
+                                       "rows_faulty": int(mine.numel())}}
+    if out["half_row_sum_of_squares"]["y_row_rel"] <= BF16_ROW_RTOL:
+        raise AssertionError(f"the rmsnorm checks at rows={rows} d={d} cannot see a planted "
+                             f"fault: {out}")
+    return out
+
+
 def rmsnorm_bwd_faults(x, scale, dy, dx_p, ds_p) -> dict:
     """What the bf16 checks read on two faults the backward kernel could
     have, built from the plain formulas: dx without its ``mean(w·g·x)``
@@ -851,11 +903,7 @@ def rmsnorm_bwd_faults(x, scale, dy, dx_p, ds_p) -> dict:
     xf, g = x.float().reshape(rows, d), dy.float().reshape(rows, d)
     r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + 1e-6)
     dx_bad = (g * (1.0 + scale) * r).to(x.dtype)
-    geo = rn.grid(d, rows, x.dtype == torch.bfloat16, True, x.device.index)
-    blocks, at_once = geo["blocks"], geo["rows_at_once"]
-    last = torch.arange((blocks - 1) * at_once, rows, blocks * at_once, device=x.device)
-    mine = (last[:, None] + torch.arange(at_once, device=x.device)).flatten()
-    mine = mine[mine < rows]
+    mine = last_block_rows(d, rows, x.dtype == torch.bfloat16, True, x.device)
     ds_bad = ds_p - (g[mine] * (xf[mine] * r[mine])).sum(dim=0)
     out = {"dx_mean_term_dropped": {"dx_row_rel": row_rel_err(dx_bad, dx_p.reshape(rows, d))},
            "dscale_last_block_dropped": {"dscale_rel": rel_to_max(ds_bad, ds_p),
@@ -870,7 +918,8 @@ def rmsnorm_bwd_faults(x, scale, dy, dx_p, ds_p) -> dict:
 def time_rmsnorm(rows, d, cold=True) -> dict:
     """Forward and backward at (rows, d) in bf16: checked (forward 2e-2 and a
     row within ``BF16_ROW_RTOL``; backward dx a row within ``BF16_ROW_RTOL``,
-    dscale within ``DSCALE_RTOL`` of its largest entry; two planted faults)
+    dscale within ``DSCALE_RTOL`` of its largest entry; a planted fault in the
+    forward, two in the backward)
     and timed over rotated inputs (a cold L2; with ``cold`` false one input
     set, warm in L2, as a decode step's norm finds the row its previous
     operation just wrote), beside the plain versions, autograd of the plain
@@ -893,6 +942,7 @@ def time_rmsnorm(rows, d, cold=True) -> dict:
         raise AssertionError(f"rmsnorm kernels disagree with their plain versions at rows={rows} "
                              f"d={d} bf16: forward {fwd}, backward {bwd} (tolerances: a row "
                              f"{BF16_ROW_RTOL}, dscale {DSCALE_RTOL} of its largest entry)")
+    fwd["planted_faults"] = rmsnorm_fwd_faults(x, scale, y_p)
     bwd["planted_faults"] = rmsnorm_bwd_faults(x, scale, dy, dx_p, ds_p)
     del y, y_p, dx, dx_p
 
@@ -1065,9 +1115,10 @@ def time_adam_tree(cfg) -> dict:
     params' dtypes, fp32 m and v, random gradients): checked against
     ``fused_adam_plain`` leaf by leaf, bit for bit (two planted faults on
     the largest leaf, left out of the call and its p left unstored, must read
-    above that), timed, and beside it the same tree all in fp32 through the
-    kernel and through ``torch._fused_adamw_``, the library yardstick (one
-    dtype for everything; the port never calls it)."""
+    above that), timed beside the plain version leaf by leaf, and beside it
+    the same tree all in fp32 through the kernel and through
+    ``torch._fused_adamw_``, the library yardstick (one dtype for
+    everything; the port never calls it)."""
     params = [p.detach() for p in tree_flatten_with_path(init_params(cfg, 0, DEV)).values()]
     rng = generator(14)
     leaves = [(p, randn(rng, p.shape, p.dtype), randn(rng, p.shape, torch.float32, 0.1),
@@ -1091,6 +1142,8 @@ def time_adam_tree(cfg) -> dict:
     out = {"leaves": len(leaves), "elements": sum(p.numel() for p in ps), "launches": launched,
            "max_abs_err": err, "tol": 0.0, "planted_faults": faults,
            "ms": time_ms(lambda: fad.fused_adam_multi_cuda(ps, gs, ms, vs, cnt, **ADAM_HP), 5),
+           "plain_ms": time_ms(lambda: [fad.fused_adam_plain(*leaf, cnt, **ADAM_HP)
+                                        for leaf in leaves], 3),
            **adam_tree_bound(leaves)}
     del leaves
     for lst in (ps, gs):            # the same tree in fp32, in place of the bf16 buffers
@@ -1447,11 +1500,12 @@ def expected_launches(cfg, params=None, optimizer="adamw") -> dict:
     backward, and, given the parameter tree ``params``, fused_adam once per
     (p, g, m/v) dtype group of AdamW's leaves (gradients in the params'
     dtypes, m and v in ``cfg.state_dtype``) and ``fad.MAX_LEAVES`` leaves;
-    the other optimizers launch no kernel."""
+    the other optimizers launch no kernel.  Without ``cfg.use_flash`` the
+    model takes its plain attention and norms: AdamW's launches only."""
     period = cfg.scan_period()
     recomputed = (cfg.n_layers // period) * period if resolve_remat(cfg.remat)[0] else 0
     out = dict.fromkeys(KERNELS, 0)
-    for i, spec in enumerate(cfg.layer_specs()):
+    for i, spec in enumerate(cfg.layer_specs() if cfg.use_flash else ()):
         runs = 2 if i < recomputed else 1
         attn = int(spec.mixer in ("attn", "local"))
         mamba = int(spec.mixer == "mamba")
@@ -1462,8 +1516,8 @@ def expected_launches(cfg, params=None, optimizer="adamw") -> dict:
         out["ssd_chunk"] += runs * mamba
         out["rmsnorm"] += runs * norms
         out["rmsnorm_bwd"] += norms
-    out["rmsnorm"] += 1
-    out["rmsnorm_bwd"] += 1
+    out["rmsnorm"] += int(cfg.use_flash)
+    out["rmsnorm_bwd"] += int(cfg.use_flash)
     if params is not None and optimizer == "adamw":
         state = getattr(torch, cfg.state_dtype)
         out["fused_adam"] = adam_launches((p.dtype, p.dtype, state)
@@ -2186,7 +2240,8 @@ def parity(cfg, phase: str, seq: int) -> None:
             loss, metrics = lm_loss(params, replace(cfg, use_flash=flash), inputs, labels)
         grads = torch.autograd.grad(loss, leaves)
         out[flash] = (loss.item(), grads, dict(ops.LAUNCHES), metrics["aux_loss"].item())
-    want = {k: v for k, v in expected_launches(cfg).items() if k != "fused_adam"}
+    want = {k: v for k, v in expected_launches(replace(cfg, use_flash=True)).items()
+            if k != "fused_adam"}
     got = {k: v for k, v in out[True][2].items() if k != "fused_adam"}
     if got != want or any(out[False][2].values()):
         raise AssertionError(f"kernel launches: kernel path {got} (expected {want}), "
@@ -2889,22 +2944,29 @@ MONET_CLI = (
 )
 
 
+def side_by_side(argvs, cwd=None) -> list[tuple[subprocess.CompletedProcess, float]]:
+    """Each argv run by this interpreter (``PYTHONPATH=src``) in a process of
+    its own on the card's host, all at once: (the finished process, its host
+    seconds) for each."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def run(argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], env=env, capture_output=True, text=True,
+                              timeout=300, cwd=cwd)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(argvs)) as pool:
+        return list(pool.map(run, argvs))
+
+
 def phase_monet_cli(cfg) -> None:
     """``python -m`` each of ``MONET_CLI`` on the card's host, side by side
     (most of each is the interpreter's start): exit 0 and its line, host
     seconds; then MONET's KV bytes a token at ``cfg``'s widths (its
     GPT-2-shaped serving graph) beside the port's real cache, as ``serve``
     allocates it (``init_cache``, ``SERVE_BATCH`` × ``SERVE_MAX_SEQ``)."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-
-    def run(argv):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", *argv], env=env, capture_output=True,
-                              text=True, timeout=300)
-        return proc, time.perf_counter() - t0
-
-    with ThreadPoolExecutor(len(MONET_CLI)) as pool:
-        done = list(pool.map(run, [argv for _, argv, _ in MONET_CLI]))
+    done = side_by_side([["-m", *argv] for _, argv, _ in MONET_CLI])
     runs = {}
     for (name, argv, want), (proc, secs) in zip(MONET_CLI, done, strict=True):
         if proc.returncode or want not in proc.stdout:
@@ -2936,10 +2998,304 @@ def phase_monet_cli(cfg) -> None:
 
 
 # ---------------------------------------------------------------------------
+# examples
+# ---------------------------------------------------------------------------
+
+
+EXAMPLES = os.path.join(ROOT, "examples", "port")
+#: train_lm: the first call's steps, the second call's (it resumes at
+#: LM_RESUME, the last commit before the first call's end), the use_flash
+#: run's; batch and sequence are the twin's defaults
+LM_FIRST, LM_SECOND, LM_RESUME, LM_FLASH_STEPS = 120, 300, 100, 8
+LM_BATCH, LM_SEQ = 4, 512
+#: losses reported after this many steps
+LM_LOSS_AT = (1, 100, 120, 300)
+#: the replayed steps (LM_RESUME + 1 .. LM_FIRST) from the same weights,
+#: AdamW state and batches: losses and grad norms equal to the first call's
+LM_REPLAY_TOL = 0.0
+#: use_flash against the plain attention and norms: they differ by bf16
+#: roundings (trap T1).  Each step's loss and grad norm is held to the plain
+#: run's within these relative limits, set at 20-35x the largest readings
+#: (NVIDIA H100 80GB HBM3, 700.00 W: losses 3.04e-5, grad norms 4.89e-4); the
+#: flash output zeroed, a planted fault, read 1.9e-3 and 0.25 and must read
+#: above one of them
+LM_FLASH_RTOL = {"loss": 1e-3, "grad_norm": 1e-2}
+#: the host twins at small arguments, with the rows each CSV holds; the one
+#: table of them: tests/test_torch_examples.py reads it from this file and
+#: runs each twin beside the reference at these arguments
+HOST_TWINS = (("quickstart", [], None), ("dse_resnet", ["--sample", "20"], 20),
+              ("serve_lm", ["--chips", "1", "4", "--slots", "4", "64"], 24),
+              ("memory_wall", [], 32), ("parallel_training", ["--chips", "2", "4"], 18),
+              ("resilience", ["--chips", "1", "2", "4"], 20), ("fusion_search", [], 68))
+
+
+def example(name):
+    """The twin ``examples/port/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(f"port_example_{name}",
+                                                  os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def run_train_lm(mod, argv) -> dict:
+    """One in-process call of the train_lm twin, ``mod.main(argv)``: its log
+    and stdout, the kernels it launched, its peak device memory, each
+    checkpoint commit (step, seconds on the writer's thread, bytes on disk)
+    and each restore (seconds of ``load_checkpoint``)."""
+    writes, reads = [], []
+    save, load = ckpt_store.save_checkpoint, train_module.load_checkpoint
+
+    def timed_save(ckpt_dir, step, tree, extra=None):
+        t0 = time.perf_counter()
+        path = save(ckpt_dir, step, tree, extra)
+        writes.append({"step": step, "write_s": time.perf_counter() - t0,
+                       "bytes": dir_bytes(path)})
+        return path
+
+    def timed_load(*args, **kw):
+        t0 = time.perf_counter()
+        out = load(*args, **kw)
+        reads.append({"step": out[1]["step"], "read_s": time.perf_counter() - t0})
+        return out
+
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with (patched(ckpt_store, "save_checkpoint", timed_save),
+          patched(train_module, "load_checkpoint", timed_load), contextlib.redirect_stdout(buf)):
+        logs = mod.main(argv)
+    return {"logs": logs, "stdout": buf.getvalue().splitlines(), "launches": dict(ops.LAUNCHES),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "writes": writes,
+            "reads": reads}
+
+
+def check_lm_call(cfg, run, start, steps) -> dict:
+    """A call's log covers steps ``start`` .. ``steps`` − 1 with finite losses
+    and grad norms, and it launched each kernel the derived count a step
+    times its steps.  Returns the count a step."""
+    logs = run["logs"]
+    if [l["step"] for l in logs] != list(range(start, steps)):
+        raise AssertionError(f"train_lm logged steps {[l['step'] for l in logs]}, expected "
+                             f"{start} .. {steps - 1}")
+    if not all(math.isfinite(l["loss"]) and math.isfinite(l["grad_norm"]) for l in logs):
+        raise AssertionError(f"train_lm: non-finite losses or grad norms {logs}")
+    per_step = expected_launches(cfg, abstract_params(cfg))
+    want = {name: n * (steps - start) for name, n in per_step.items()}
+    if run["launches"] != want:
+        raise AssertionError(f"train_lm launches {run['launches']}, expected {want}")
+    return per_step
+
+
+def lm_summary(run, steps) -> dict:
+    times = [l["time_s"] for l in run["logs"]]
+    steady = float(np.median(times[1:]))
+    return {"steps": steps, "step_s_median_after_first": steady,
+            "tokens_per_s": LM_BATCH * LM_SEQ / steady, "step_s_first": times[0],
+            "peak_memory_bytes": run["peak_memory_bytes"], "checkpoints": run["writes"],
+            "restores": run["reads"], "stdout": run["stdout"],
+            "launches": run["launches"],
+            "launches_per_step": {name: n // len(times) for name, n in run["launches"].items()}}
+
+
+def phase_examples_lm(mod, root) -> tuple[dict, list]:
+    """(a) ``examples/port/train_lm.py`` as documented: LM-100M at full size,
+    ``--steps 120``, then ``--steps 300`` on the same ``--ckpt-dir``.  The
+    trainer commits every 50 steps and at its last step; the commit of step
+    120 is removed between the calls, as a run stopped after step 100's
+    commit would leave the directory, so that the second call resumes at 100
+    and replays steps 101–120 (held to the first call's).  Returns the
+    launches of both calls and the log of the first ``LM_FLASH_STEPS`` steps."""
+    cfg = mod.LM_100M
+    ckpt = os.path.join(root, "ckpt")
+    first = run_train_lm(mod, ["--steps", str(LM_FIRST), "--ckpt-dir", ckpt])
+    per_step = check_lm_call(cfg, first, 0, LM_FIRST)
+    commits = [w["step"] for w in first["writes"]]
+    ckpt_bytes = first["writes"][-1]["bytes"]
+    shutil.rmtree(os.path.join(ckpt, f"step_{LM_FIRST:08d}"))
+    second = run_train_lm(mod, ["--steps", str(LM_SECOND), "--ckpt-dir", ckpt])
+    check_lm_call(cfg, second, LM_RESUME, LM_SECOND)
+    with open(os.path.join(root, "lm100m_torch_log.jsonl")) as f:
+        log_lines = len(f.readlines())
+
+    full = first["logs"][:LM_RESUME] + second["logs"]
+    losses = [l["loss"] for l in full]
+    replayed = list(zip(first["logs"][LM_RESUME:], second["logs"][:LM_FIRST - LM_RESUME],
+                        strict=True))
+    replay = {key: max(abs(a[key] - b[key]) for a, b in replayed)
+              for key in ("loss", "grad_norm")}
+    emit("examples_train_lm", arch=cfg.name, params=cfg.param_count(), batch=LM_BATCH,
+         seq=LM_SEQ, remat=cfg.remat, use_flash=cfg.use_flash,
+         config={k: getattr(cfg, k) for k in ("n_layers", "d_model", "n_heads", "n_kv_heads",
+                                               "head_dim", "d_ff", "vocab", "mlp")},
+         first_call=lm_summary(first, LM_FIRST),
+         second_call=lm_summary(second, LM_SECOND),
+         commits_first_call=commits, checkpoint_bytes=ckpt_bytes,
+         removed_before_second_call=LM_FIRST, resumed_at=second["logs"][0]["step"],
+         log_lines=log_lines, loss_at_step={n: losses[n - 1] for n in LM_LOSS_AT},
+         replayed_steps=[LM_RESUME + 1, LM_FIRST], replay_max_abs_diff=replay,
+         replay_tol=LM_REPLAY_TOL, losses=losses)
+    if ([r["step"] for r in second["reads"]] != [LM_RESUME]
+            or log_lines != LM_FIRST + LM_SECOND - LM_RESUME):
+        raise AssertionError(f"the second call restored {second['reads']} (expected step "
+                             f"{LM_RESUME} once); the log holds {log_lines} lines")
+    if per_step["fused_adam"] != 2 or commits != [50, 100, LM_FIRST]:
+        raise AssertionError(f"fused_adam {per_step['fused_adam']} a step (expected 2), "
+                             f"commits {commits}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_lm: the last loss {losses[-1]} is not below the first "
+                             f"{losses[0]}")
+    if max(replay.values()) > LM_REPLAY_TOL:
+        raise AssertionError(f"train_lm: the resumed call's steps {LM_RESUME + 1}–{LM_FIRST} "
+                             f"differ from the first call's by {replay}")
+    return ({"examples_lm100m": first["launches"], "examples_lm100m_resumed": second["launches"]},
+            first["logs"][:LM_FLASH_STEPS])
+
+
+def lm_rel_diffs(logs, plain_logs) -> dict:
+    """Each step's loss and grad norm against the plain run's, relative."""
+    return {key: [abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(logs, plain_logs, strict=True)]
+            for key in LM_FLASH_RTOL}
+
+
+def phase_examples_flash(mod, plain_logs, root) -> tuple[dict, dict]:
+    """(b) the same LM-100M with ``use_flash=True`` (set here by
+    ``dataclasses.replace``), ``LM_FLASH_STEPS`` steps from seed 0: losses
+    and grad norms against the plain run's (``LM_FLASH_RTOL``), and again
+    with the flash output zeroed through the wrapper, a planted fault that
+    must read above them; launches.  Then flash forward, dq, dkv at its
+    attention's shape and rmsnorm forward and backward at its rows and width
+    against their plain versions (rows within ``BF16_ROW_RTOL``, planted
+    faults that must read above), and fused_adam over its parameter tree
+    (``time_adam_tree``: bit for bit), each timed beside bound, plain version
+    and library call.  Returns the launches and the timings by kernel."""
+    cfg = replace(mod.LM_100M, use_flash=True)
+    flash = ops.flash_attention
+    with patched(mod, "LM_100M", cfg):
+        run = run_train_lm(mod, ["--steps", str(LM_FLASH_STEPS), "--ckpt-dir",
+                                 os.path.join(root, "ckpt_flash")])
+        with patched(ops, "flash_attention", lambda *a, **kw: flash(*a, **kw) * 0):
+            faulty = run_train_lm(mod, ["--steps", str(LM_FLASH_STEPS), "--ckpt-dir",
+                                        os.path.join(root, "ckpt_flash_fault")])
+    check_lm_call(cfg, run, 0, LM_FLASH_STEPS)
+    rel = lm_rel_diffs(run["logs"], plain_logs)
+    fault = lm_rel_diffs(faulty["logs"], plain_logs)
+    torch.cuda.empty_cache()
+
+    case = (LM_BATCH, LM_SEQ, LM_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, True, None)
+    errs = check_case(case, torch.bfloat16, 2e-2, 2e-2, seed=100, faults=True)
+    timed = time_case(case, torch.bfloat16, reps=20)
+    for name in FLASH:
+        timed[name].update(max_abs_err=errs[name], max_row_rel_err=errs["row_rel"][name],
+                           grid=tc_grid(name, case))
+    timed["flash_fwd"]["lse_abs_err"] = errs["lse_abs"]
+    norm = time_rmsnorm(LM_BATCH * LM_SEQ, cfg.d_model)
+    timed["rmsnorm"], timed["rmsnorm_bwd"] = norm["forward"], norm["backward"]
+    torch.cuda.empty_cache()
+    timed["fused_adam"] = time_adam_tree(cfg)
+    torch.cuda.empty_cache()
+    emit("examples_train_lm_flash", arch=cfg.name, use_flash=True,
+         run=lm_summary(run, LM_FLASH_STEPS),
+         steps={key: [l[key] for l in run["logs"]] for key in LM_FLASH_RTOL},
+         plain_steps={key: [l[key] for l in plain_logs] for key in LM_FLASH_RTOL},
+         rel_diff=rel, rtol=LM_FLASH_RTOL,
+         flash_shape=dict(zip(("B", "S", "T", "H", "Kv", "hd", "causal", "window"), case,
+                              strict=True)),
+         norm_shape={"rows": LM_BATCH * LM_SEQ, "d": cfg.d_model}, tol=2e-2,
+         tol_row_rel=BF16_ROW_RTOL, tol_lse=BF16_LSE_ATOL, kernels=timed,
+         planted_faults={"train_flash_output_zeroed": {
+                             "rel_diff": fault,
+                             "steps": {key: [l[key] for l in faulty["logs"]]
+                                       for key in LM_FLASH_RTOL}},
+                         "flash": errs["planted_faults"],
+                         "rmsnorm": norm["forward"]["planted_faults"],
+                         "rmsnorm_bwd": norm["backward"]["planted_faults"]})
+    if any(max(rel[key]) > tol for key, tol in LM_FLASH_RTOL.items()):
+        raise AssertionError(f"use_flash against the plain run: relative differences {rel} "
+                             f"(tolerances {LM_FLASH_RTOL})")
+    if all(max(fault[key]) <= tol for key, tol in LM_FLASH_RTOL.items()):
+        raise AssertionError(f"use_flash with the flash output zeroed reads {fault}, within "
+                             f"the tolerances {LM_FLASH_RTOL}")
+    return {"examples_lm100m_flash": run["launches"]}, timed
+
+
+def phase_examples_ga() -> None:
+    """(c) ``examples/port/checkpointing_ga.py`` on the CPU and on the card:
+    the same printed front and families, and the toy step's loss 32768 and
+    grad norm 512 exactly on both."""
+    mod = example("checkpointing_ga")
+    out = {}
+    for dev in ("cpu", DEV):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            loss, gnorm = mod.main(["--device", dev])
+        out[dev] = {"loss": loss, "grad_norm": gnorm, "host_s": time.perf_counter() - t0,
+                    "stdout": buf.getvalue().splitlines()}
+    emit("examples_checkpointing_ga", runs=out, expected={"loss": 32768.0, "grad_norm": 512.0})
+    if out["cpu"]["stdout"] != out[DEV]["stdout"] or any(
+            (r["loss"], r["grad_norm"]) != (32768.0, 512.0) for r in out.values()):
+        raise AssertionError(f"checkpointing_ga: the card's run differs from the CPU's, or the "
+                             f"step is not 32768 / 512: {out}")
+
+
+def phase_examples_host() -> None:
+    """(d) the seven host twins, each ``python examples/port/<name>.py`` in a
+    process of its own, side by side: exit 0, the CSV's rows as on the CPU,
+    host seconds."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_host_twins_")
+    csv_path = lambda name: os.path.join(out_dir, f"{name}.csv")
+    try:
+        done = side_by_side([[os.path.join(EXAMPLES, f"{name}.py"), *args,
+                              *(["--out", csv_path(name)] if rows else [])]
+                             for name, args, rows in HOST_TWINS], cwd=out_dir)
+        runs = {}
+        for (name, args, rows), (proc, secs) in zip(HOST_TWINS, done, strict=True):
+            got = None
+            if os.path.exists(csv_path(name)):
+                with open(csv_path(name), newline="") as f:
+                    got = sum(1 for _ in csv.reader(f)) - 1
+            if proc.returncode or got != rows:
+                raise AssertionError(f"examples/port/{name}.py: exit {proc.returncode}, {got} rows "
+                                     f"(expected {rows})\n{proc.stdout[-2000:]}\n"
+                                     f"{proc.stderr[-2000:]}")
+            lines = proc.stdout.strip().splitlines()
+            runs[name] = {"argv": " ".join(args), "exit": proc.returncode, "host_s": secs,
+                          "csv_rows": got, "stdout_lines": len(lines), "last_line": lines[-1]}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit("examples_host", runs=runs)
+
+
+def phase_examples() -> tuple[dict, dict]:
+    """The four parts of the ``examples`` phase; the train_lm calls write
+    their checkpoints and log into a directory of their own under
+    ``$TMPDIR``, removed at the end.  Returns the launches by path and
+    the LM-100M kernel timings."""
+    mod = example("train_lm")
+    root = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        with patched(tempfile, "tempdir", root):
+            launches, plain_logs = phase_examples_lm(mod, root)
+            torch.cuda.empty_cache()
+            flash_launches, timed = phase_examples_flash(mod, plain_logs, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_examples_ga()
+    phase_examples_host()
+    return {**launches, **flash_launches}, timed
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("env", "build", "kernels", "train", "train_ssm", "train_mla", "train_moe", "remat",
           "ac_search", "train_opt", "train_mesh", "serve", "parity", "parity_ssm", "parity_serve",
-          "parity_moe", "parity_opt", "dryrun", "trace", "resilience", "monet_cli")
+          "parity_moe", "parity_opt", "dryrun", "trace", "resilience", "monet_cli",
+          "examples")
 
 
 def main() -> None:
@@ -2956,6 +3312,7 @@ def main() -> None:
     mamba = replace(get_config("mamba2-1.3b"), use_flash=True)
     mla = replace(get_config("minicpm3-4b"), use_flash=True)
     olmoe = replace(get_config("olmoe-1b-7b"), use_flash=True)
+    lm100m = example("train_lm").LM_100M
     seconds, last = {}, time.time()
 
     def lap(phase):
@@ -2967,7 +3324,7 @@ def main() -> None:
         phase_env()
         lap("env")
     if "build" in phases:
-        phase_build(norm_widths(gemma, mamba, mla, olmoe))
+        phase_build(norm_widths(gemma, mamba, mla, olmoe, lm100m))
         lap("build")
     timed = None
     if "kernels" in phases:
@@ -3042,6 +3399,11 @@ def main() -> None:
     if "monet_cli" in phases:
         phase_monet_cli(gemma)
         lap("monet_cli")
+    timed_lm = None
+    if "examples" in phases:
+        more, timed_lm = phase_examples()
+        launches.update(more)
+        lap("examples")
 
     emit("done", phases=phases, seconds=round(time.time() - t0, 1), phase_seconds=seconds)
     if timed is not None and {"train", "train_ssm"} <= set(launches):
@@ -3103,6 +3465,23 @@ def main() -> None:
                             "tree"):
                     if key in t:
                         entry[key] = t[key]
+            if timed_lm is not None and name in timed_lm:
+                t = timed_lm[name]
+                if name in FLASH:
+                    shape = (f"bf16 B={LM_BATCH} S=T={LM_SEQ} H={lm100m.n_heads} "
+                             f"Kv={lm100m.n_kv_heads} hd={lm100m.head_dim_} causal")
+                elif name == "fused_adam":
+                    shape = (f"{lm100m.name}'s parameter tree: {t['leaves']} leaves, "
+                             f"{t['elements']} elements, fp32 m/v, one multi-tensor call")
+                else:
+                    shape = f"bf16 rows={LM_BATCH * LM_SEQ} d={lm100m.d_model}"
+                path = "examples_lm100m" if name == "fused_adam" else "examples_lm100m_flash"
+                entry["lm100m_layer"] = {
+                    "shape": shape, f"launches_{path}": by_path.get(path),
+                    **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "library_note", "max_abs_err",
+                                               "tol", "max_row_rel_err", "grid",
+                                               "planted_faults") if key in t}}
             line.append(entry)
         print(json.dumps({"kernels": line}), flush=True)
     print(smi(), flush=True)
