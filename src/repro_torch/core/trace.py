@@ -26,7 +26,8 @@ the optimizer.  On CUDA the step really runs while it is traced.
   operators inside it (its plain version on the CPU or ``meta``, its output
   allocations on CUDA) are not recorded.  ``meta["kernel"]`` is the entry
   point's name in ``build.LAUNCHES``; the op is ``gemm`` for the flash
-  kernels and ``ssd_chunk`` (dims ``B`` = batch·heads (·chunks), ``M``,
+  kernels, ``ssd_chunk`` and ``ssd_chunk_bwd`` (dims ``B`` = batch·heads
+  (·chunks), ``M``,
   ``N`` the sequence or chunk lengths, ``K`` what the FLOPs leave), ``norm``
   / ``norm_bwd`` for the rmsnorm entry points and ``opt`` for AdamW, kinds
   that ``graph.OP_CLASS`` already holds (class ``gemm``, or ``simd``).  Its
@@ -124,8 +125,8 @@ _IDENTITY = {torch.ops.aten.lift_fresh.default}
 #: a kernel node's op: ``gemm`` (class gemm) for the attention and SSD
 #: kernels, the norms' and the optimizer's kinds (class simd) for the others
 KERNEL_OPS = {"flash_fwd": "gemm", "flash_dq": "gemm", "flash_dkv": "gemm",
-              "ssd_chunk": "gemm", "rmsnorm": "norm", "rmsnorm_bwd": "norm_bwd",
-              "fused_adam": "opt"}
+              "ssd_chunk": "gemm", "ssd_chunk_bwd": "gemm", "rmsnorm": "norm",
+              "rmsnorm_bwd": "norm_bwd", "fused_adam": "opt"}
 
 
 def _dtype(t: torch.Tensor) -> str:
@@ -369,7 +370,7 @@ class GraphRecorder(TorchDispatchMode):
         n = sum(t.numel() for t in _tensors(args[:1]))
         if op == "gemm":
             q = tensors[0]
-            if name == "ssd_chunk":       # x (Bt, nc, Q, H, hp)
+            if name in ("ssd_chunk", "ssd_chunk_bwd"):    # x (Bt, nc, Q, H, hp)
                 cand = [(q.shape[0] * q.shape[1] * q.shape[3], q.shape[2], q.shape[2])]
             else:                         # q (B, S, H, hd), k (B, T, Kv, hd)
                 cand = [(q.shape[0] * q.shape[2], q.shape[1], tensors[1].shape[1])]

@@ -16,13 +16,13 @@
   dry-run's FLOP counters see them (``build.PLAIN_DEVICES``);
 * ``flash_attention`` is one ``torch.autograd.Function`` wiring the recompute
   backward (dq kernel, then dk/dv kernel) from the saved ``(q,k,v,o,lse)``;
-  ``rmsnorm`` is one whose backward is the rmsnorm backward kernel (the TPU
-  kernel has none: JAX differentiates the reference); ``ssd_chunk``'s
-  backward is autograd of the plain version (the TPU kernel has none);
+  ``rmsnorm`` is one whose backward is the rmsnorm backward kernel, and
+  ``ssd_chunk``'s is the SSD chunk's backward kernel (the TPU kernels have
+  none: JAX differentiates the reference);
 * ``fused_adam_multi`` updates lists of leaves in place, one launch per
   dtype group (``fused_adam`` is a list of one);
 * ``LAUNCHES`` counts the launches of every C entry point: the six kernels
-  and the rmsnorm backward (``build.LAUNCHES``);
+  and the rmsnorm and SSD chunk backwards (``build.LAUNCHES``);
 * every wrapper makes its choice between kernel and plain version through
   ``build.kernel_call``, which an active trace (``core/trace.py``) records as
   one node a launch.

@@ -13,9 +13,9 @@ whole chunk), 1e-5 for its ``cum``, 1e-6 for Adam; 5e-5 for fp32 gradients
 (the rmsnorm backward's dscale: 5e-5 of its largest entry, a sum over rows).
 """
 
-import re
-
+import ast
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -336,8 +336,9 @@ def test_ssd_chunk_plain_matches_pallas(Q, hp, N, dtype):
 
 @pytest.mark.parametrize("G", [1, 2])
 def test_ssd_chunk_function_grads_match_autograd_of_plain(G):
-    """Model layout, B/C shared by groups of heads; the Function's backward is
-    autograd of the plain version."""
+    """Model layout, B/C shared by groups of heads; the Function's backward
+    (on the CPU the backward kernel's plain version) against autograd of the
+    forward's plain version."""
     rng = np.random.default_rng(10)
     Bt, nc, Q, H, hp, N = 2, 2, 16, 4, 8, 8
     _, x = rand(rng, (Bt, nc, Q, H, hp))
@@ -394,6 +395,130 @@ def test_ssd_plain_has_finite_grads_where_the_exponent_overflows():
     np.testing.assert_allclose(f32(y), f32(y1), atol=2e-4, rtol=2e-5)
     g = torch.autograd.grad(y.square().sum() + s.sum(), args)
     assert all(torch.isfinite(x).all() for x in g)
+
+
+def ssd_model_inputs(rng, Bt, nc, Q, H, hp, G, N, dt_scale=0.5):
+    """Model layout, b and c the two group halves of one ``bc`` (strided
+    views, as the model slices them), and the three output gradients."""
+    x = rand(rng, (Bt, nc, Q, H, hp))[1]
+    dt = torch.from_numpy(np.abs(rng.standard_normal((Bt, nc, Q, H))).astype(np.float32)
+                          * dt_scale)
+    bc = rand(rng, (Bt, nc, Q, 2 * G, N))[1]
+    a = torch.from_numpy(-np.abs(rng.standard_normal(H)).astype(np.float32) - 0.1)
+    cots = [rand(rng, s)[1] for s in ((Bt, nc, Q, H, hp), (Bt, nc, H, N, hp), (Bt, nc, Q, H))]
+    return (x, dt, bc, a), cots
+
+
+def assert_grads_close(got, want, names):
+    """5e-5, of the largest entry where that is above 1: ddt and da sum a
+    chunk's rows (da also batch and chunks), the rest up to Q terms."""
+    for name, u, w in zip(names, got, want, strict=True):
+        u, w = f32(u), f32(w)
+        atol = 5e-5 * max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(u, w, atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["Q256-G1", "Q256-G2", "Q96-G2", "dy-None", "dstates-None",
+                                  "dcum-None"])
+def test_ssd_chunk_bwd_plain_matches_autograd_of_plain(case):
+    """``ssd_chunk_bwd_plain`` (the backward kernel's arithmetic written out,
+    no autograd) against ``torch.autograd.grad`` of the forward's plain
+    version ``ssd_intra``: mamba2's chunk (Q 256) with small heads and
+    states, one and two groups (dB and dC summed over a group's heads), a
+    ragged chunk, and each output gradient ``None`` in turn (zeros)."""
+    rng = np.random.default_rng(20)
+    Q, G = (256, 1) if case == "Q256-G1" else (96, 2) if case == "Q96-G2" else (256, 2)
+    (x, dt, bc, a), cots = ssd_model_inputs(rng, 2, 2, Q, 4, 8, G, 8)
+    none = {"dy-None": 0, "dstates-None": 1, "dcum-None": 2}.get(case)
+    if none is not None:
+        cots[none] = None
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, bc, a)]
+    b, c = leaves[2].split(G, dim=3)
+    outs = ref.ssd_intra(leaves[0], leaves[1], b, c, leaves[3])
+    pairs = [(o, w) for o, w in zip(outs, cots, strict=True) if w is not None]
+    want = torch.autograd.grad([o for o, _ in pairs], leaves, [w for _, w in pairs],
+                               allow_unused=True, materialize_grads=True)
+    dx, ddt, db, dc, da = sc.ssd_chunk_bwd_plain(x, dt, *bc.split(G, dim=3), a, *cots)
+    assert db.is_contiguous() and dc.is_contiguous() and db.shape == (2, 2, Q, G, 8)
+    assert_grads_close((dx, ddt, torch.cat((db, dc), dim=3), da), want,
+                       ("dx", "ddt", "dbc", "da"))
+
+
+def test_ssd_chunk_function_honours_needs_input_grad():
+    """``a`` frozen: the Function's backward (``ssd_chunk_bwd`` on the CPU,
+    its plain version) gives no gradient for it and the others' equal
+    autograd of ``ssd_intra``; the forward's plain version runs once (the
+    backward does not re-run it), the backward's plain version once, and
+    nothing is launched."""
+    rng = np.random.default_rng(21)
+    (x, dt, bc, a), cots = ssd_model_inputs(rng, 1, 2, 64, 4, 8, 1, 16)
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = sc.ssd_chunk_plain, sc.ssd_chunk_bwd_plain
+
+    def counted(key, fn):
+        def inner(*args):
+            calls[key] += 1
+            return fn(*args)
+        return inner
+
+    before = dict(ops.LAUNCHES)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, bc)]
+    try:
+        sc.ssd_chunk_plain = counted("fwd", fwd)
+        sc.ssd_chunk_bwd_plain = counted("bwd", bwd)
+        outs = ops.ssd_chunk_heads(leaves[0], leaves[1], *leaves[2].split(1, dim=3), a)
+        loss = sum((o * w).sum() for o, w in zip(outs, cots, strict=True))
+        loss.backward()
+    finally:
+        sc.ssd_chunk_plain, sc.ssd_chunk_bwd_plain = fwd, bwd
+    assert calls == {"fwd": 1, "bwd": 1} and a.grad is None and ops.LAUNCHES == before
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, dt, bc)]
+    outs = ref.ssd_intra(ref_leaves[0], ref_leaves[1], *ref_leaves[2].split(1, dim=3), a)
+    want = torch.autograd.grad(sum((o * w).sum() for o, w in zip(outs, cots, strict=True)),
+                               ref_leaves)
+    assert_grads_close([t.grad for t in leaves], want, ("dx", "ddt", "dbc"))
+
+
+def test_ssd_chunk_bwd_plain_matches_jax_grad_of_reference_oracle():
+    """Q 64 (under 128, where the reference's own gradients are finite): the
+    backward's plain version, through the reference's layout (views), against
+    ``jax.vjp`` of ``repro.kernels.ref.ssd_chunk_ref`` with the same three
+    output gradients."""
+    rng = np.random.default_rng(22)
+    BH, nc, Q, hp, N = 3, 2, 64, 16, 16
+    j, t = ssd_inputs(rng, BH, nc, Q, hp, N)
+    cj = [rand(rng, s) for s in ((BH, nc, Q, hp), (BH, nc, N, hp), (BH, nc, Q))]
+    _, vjp = jax.vjp(ref_ref.ssd_chunk_ref, *j)
+    want = vjp(tuple(w[0] for w in cj))
+    x, dt, b, c, a = t
+    dy, dS, dcum = (w[1] for w in cj)
+    got = sc.ssd_chunk_bwd_plain(*ref.to_heads(x, dt, b, c), a, dy.permute(1, 2, 0, 3)[None],
+                                 dS.permute(1, 0, 2, 3)[None], dcum.permute(1, 2, 0)[None])
+    dx, ddt, db, dc, da = got
+    back = (dx[0].permute(2, 0, 1, 3), ddt[0].permute(2, 0, 1), db[0].permute(2, 0, 1, 3),
+            dc[0].permute(2, 0, 1, 3), da)
+    assert_grads_close(back, want, ("dx", "ddt", "db", "dc", "da"))
+
+
+def test_ssd_chunk_bwd_plain_is_finite_where_the_exponent_overflows():
+    """Chunks of 128 and 256 with dt·a summing to ~−180 over the chunk: the
+    backward's plain version masks the exponent before ``exp`` (as the
+    kernel evaluates it only for i ≥ j), so every gradient is finite."""
+    rng = np.random.default_rng(23)
+    for Q in (128, 256):
+        (x, dt, bc, a), cots = ssd_model_inputs(rng, 1, 1, Q, 2, 8, 1, 8)
+        dt = torch.full_like(dt, 0.7)
+        a = torch.tensor([-1.0, -0.5])
+        grads = sc.ssd_chunk_bwd_plain(x, dt, *bc.split(1, dim=3), a, *cots)
+        assert all(torch.isfinite(g).all() for g in grads), Q
+
+
+def test_ssd_chunk_module_takes_no_autograd_of_the_plain_version():
+    """The Function's backward is ``ssd_chunk_bwd``: the module calls
+    neither ``torch.autograd.grad`` nor ``ssd_intra`` in a backward."""
+    text = open(sc.__file__).read()
+    assert "autograd.grad" not in text and "enable_grad" not in text
+    assert "ssd_chunk_bwd(*ctx.saved_tensors" in text
 
 
 def ssd_tc_arithmetic(x, dt, b, c, a):
@@ -474,6 +599,51 @@ def test_ssd_tensor_core_rounding_fits_the_bf16_tolerance(case):
                                atol=1e-5)
 
 
+def chip_smoke_function(name):
+    """A function of chip_smoke.py, read from its source (the script exits at
+    import without a GPU)."""
+    with open(os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            space = {"torch": torch}
+            exec(compile(ast.Module([node], []), "chip_smoke.py", "exec"), space)
+            return space[name]
+    raise AssertionError(f"chip_smoke.py has no {name}")
+
+
+#: db and dc as the bf16 backward kernel forms them (fp32, before its last
+#: rounding): chip_smoke.py holds the kernel to it a row at a time on the card
+ssd_bwd_tc_db_dc = chip_smoke_function("ssd_bwd_tc_db_dc")
+
+
+@pytest.mark.parametrize("case", ["model:96,16,32,8,2,0.7", "mamba2:256,64,128,64,1,0.1"])
+def test_ssd_bwd_tensor_core_rounding_fits_the_bf16_tolerance(case):
+    """The rounding of ``ssd_bwd_tc_db_dc`` on bf16 inputs against the
+    backward's plain version: every row of db and dc (over N) within
+    ``ROW_RTOL`` of the larger of its own norm and the median row's, as
+    ``chip_smoke.py`` holds the kernel on the card where this rounding fits
+    that limit.  The floor is needed:
+    db and dc sum ds over a group's heads, and where those terms cancel (a
+    chunk's first rows see one key a head) a small row's relative error is
+    the rounding's times the cancellation.  Cases: chip_smoke's small model-layout case (8 heads on 2
+    groups, a ragged chunk, dt as large as at init) and one chunk at
+    mamba2-1.3b's widths."""
+    Q, hp, N, H, G, dt_scale = (float(v) if "." in v else int(v)
+                                for v in case.split(":")[1].split(","))
+    rng = np.random.default_rng(24)
+    (x, dt, bc, a), (dy, dS, dcum) = ssd_model_inputs(rng, 1, 2 if Q < 256 else 1, Q, H, hp,
+                                                      G, N, dt_scale)
+    x, bc, dy = x.bfloat16(), bc.bfloat16(), dy.bfloat16()
+    b, c = bc.split(G, dim=3)
+    _, _, db_want, dc_want, _ = sc.ssd_chunk_bwd_plain(x, dt, b, c, a, dy, dS, dcum)
+    for name, got, want in zip(("db", "dc"), ssd_bwd_tc_db_dc(x, dt, b, c, a, dy, dS),
+                               (db_want, dc_want), strict=True):
+        g, w = f32(got.to(b.dtype)).reshape(-1, N), f32(want).reshape(-1, N)
+        err, norm = np.linalg.norm(g - w, axis=-1), np.linalg.norm(w, axis=-1)
+        assert np.all(err <= ROW_RTOL * np.maximum(norm, np.median(norm))), (name, err.max())
+
+
 # -- dispatch, counters, sources ----------------------------------------------------------
 
 
@@ -495,8 +665,10 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
 def test_six_kernels_are_built_counted_and_documented():
     assert build.SOURCES == ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm", "fused_adam",
                              "ssd_chunk")
-    # every source's entry point, and the rmsnorm backward in rmsnorm.cu
-    assert build.ENTRY_POINTS == {**{n: n for n in build.SOURCES}, "rmsnorm_bwd": "rmsnorm"}
+    # every source's entry point, the rmsnorm backward in rmsnorm.cu and the
+    # SSD chunk's backward in ssd_chunk.cu
+    assert build.ENTRY_POINTS == {**{n: n for n in build.SOURCES}, "rmsnorm_bwd": "rmsnorm",
+                                  "ssd_chunk_bwd": "ssd_chunk"}
     assert list(ops.LAUNCHES) == list(build.ENTRY_POINTS) and ops.LAUNCHES is build.LAUNCHES
     for entry, source in build.ENTRY_POINTS.items():
         assert f'extern "C" int {entry}(' in open(os.path.join(CSRC, f"{source}.cu")).read()
@@ -556,6 +728,20 @@ def _bad_input(kind):
         return fad.fused_adam_multi_cuda, args, ValueError, match
     _, (x, dt, b, c, a) = ssd_inputs(rng, 2, 1, 32, 16, 16)
     heads = (*ref.to_heads(x, dt, b, c), a)
+    if kind.startswith("ssd_bwd"):
+        cots = [torch.zeros(s) for s in ((1, 1, 32, 2, 16), (1, 1, 2, 16, 16), (1, 1, 32, 2))]
+        if kind == "ssd_bwd_cpu":
+            return sc.ssd_chunk_bwd_cuda, (*heads, *cots), ValueError
+        if kind == "ssd_bwd_head_dim":
+            _, (x, dt, b, c, a) = ssd_inputs(rng, 2, 1, 32, 8, 16)
+            return sc.ssd_chunk_bwd_cuda, (*ref.to_heads(x, dt, b, c), a, None, None, None), \
+                ValueError
+        if kind == "ssd_bwd_dy_dtype":
+            x, dt, b, c = (t.to(torch.bfloat16) if t.dim() == 5 else t
+                           for t in ref.to_heads(x, dt, b, c))
+            x, b, c = (t.clone(memory_format=torch.contiguous_format) for t in (x, b, c))
+            return sc.ssd_chunk_bwd_cuda, (x, dt, b, c, a, *cots), TypeError
+        raise KeyError(kind)
     if kind == "ssd_cpu":
         return sc.ssd_chunk_cuda, heads, ValueError
     if kind == "ssd_head_dim":
@@ -584,7 +770,8 @@ def _bad_input(kind):
                                   "ssd_bf16_misaligned", "ssd_bf16_row_stride",
                                   "rmsnorm_bwd_cpu", "rmsnorm_bwd_dy_dtype",
                                   "rmsnorm_bwd_dy_shape", "adam_multi_cpu",
-                                  "adam_multi_misaligned", "adam_multi_mv_dtypes"])
+                                  "adam_multi_misaligned", "adam_multi_mv_dtypes",
+                                  "ssd_bwd_cpu", "ssd_bwd_head_dim", "ssd_bwd_dy_dtype"])
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(kind):
     """The CUDA wrappers never compute anything for inputs outside the
     kernels' contract (CPU tensors included), and never fall back.  The bf16

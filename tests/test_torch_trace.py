@@ -314,8 +314,9 @@ def expected_kernel_nodes(cfg, params) -> dict:
     """A step's kernel calls, from the model code (as ``chip_smoke.py``
     derives launches): a layer's norms, one flash_fwd for attention and one
     ssd_chunk for a mamba mixer, each again when its period is recomputed;
-    one rmsnorm_bwd a norm, flash_dq and flash_dkv for attention; the final
-    norm and its backward; one fused_adam a launch group."""
+    one rmsnorm_bwd a norm, flash_dq and flash_dkv for attention, one
+    ssd_chunk_bwd for a mamba mixer; the final norm and its backward; one
+    fused_adam a launch group."""
     out = dict.fromkeys(build.ENTRY_POINTS, 0)
     period = cfg.scan_period()
     recomputed = (cfg.n_layers // period) * period if resolve_remat(cfg.remat)[0] else 0
@@ -327,6 +328,7 @@ def expected_kernel_nodes(cfg, params) -> dict:
         out["flash_dq"] += attn
         out["flash_dkv"] += attn
         out["ssd_chunk"] += runs * mamba
+        out["ssd_chunk_bwd"] += mamba
         out["rmsnorm"] += runs * norms
         out["rmsnorm_bwd"] += norms
     out["rmsnorm"] += 1
