@@ -8,7 +8,9 @@
 
 Phases, each printing one JSON line (or a few):
   env         versions, device name, power limit
-  build       compiles the CUDA kernels from src/repro_torch/kernels/csrc
+  build       compiles the CUDA kernels from src/repro_torch/kernels/csrc;
+              no spills in the tensor-core kernels, HGMMA in the SASS of
+              each instantiation of the bf16 SSD backward
   kernels     each of the six kernels and the rmsnorm and SSD chunk
               backwards against its plain PyTorch version on the card: fp32
               at small shapes, bf16
@@ -62,7 +64,8 @@ Phases, each printing one JSON line (or a few):
               as opt.init gives it, a checkpoint read back bit for bit, the
               time of one opt.update beside AdamW's, peak memory
   serve       make_serve_step on full-width, full-depth gemma3-1b,
-              mamba2-1.3b, minicpm3-4b and olmoe-1b-7b: 8 sequences, a
+              mamba2-1.3b and olmoe-1b-7b and on minicpm3-4b at full width
+              and 31 of its 62 layers: 8 sequences, a
               512-token prompt fed token by token, then 256 greedy tokens (768
               calls, cache of 1024); rmsnorm launches per call, decode == the
               teacher-forced forward (flash, ssd_chunk and rmsnorm kernels; for
@@ -165,7 +168,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import replace
 from unittest import mock
 
@@ -213,6 +216,8 @@ from repro_torch.distributed.sharding import whole  # noqa: E402
 from repro_torch.training.train_step import make_serve_step  # noqa: E402
 
 DEV = "cuda"
+#: the whole script's time limit on the card, the build included
+TIME_LIMIT_S = 1200
 PEAK_FLOPS = 989e12      # H100 SXM, dense bf16 tensor cores (data sheet)
 PEAK_FP32 = 67e12        # H100 SXM, fp32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM, HBM3 (data sheet)
@@ -233,7 +238,15 @@ MOE_LAYERS, MOE_BATCH, MOE_STEPS = 8, 4, 6
 MOE_AUX_RANGE = (0.9, 1.5)
 #: serve: sequences, prompt tokens, greedy tokens, cache slots, warm-up calls
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ, SERVE_WARMUP = 8, 512, 256, 1024, 16
+#: serve: minicpm3-4b at full width and 31 of its 62 layers (its 768 decode calls at full
+#: depth took ≈ 125 s of the script's time limit on a slow host, a third of serve)
+SERVE_MLA_LAYERS = 31
 
+#: the SSD backward's bf16 kernel: a block sums dB and dC over a slice of a group's
+#: heads
+WG_PATH = ("wgmma.mma_async m64nNk16 bf16 x bf16 -> fp32 (tensor cores; the score tiles "
+           "as register A operands), TMA tile copies into mbarrier rings, issued by a "
+           "thread of each of the block's two warpgroups")
 TC_PATH = ("mma.sync.aligned.m16n8k16 bf16 x bf16 -> fp32 (tensor cores), ldmatrix, "
            "cp.async two-stage ring")
 KERNELS = {
@@ -267,8 +280,9 @@ KERNELS = {
                       "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
                       "replaces": "autograd of the plain version; the TPU kernel "
                                   "src/repro/kernels/ssd_chunk.py:62 has no backward",
-                      "bf16_path": "ssd_chunk_bwd_tc_kernel: " + TC_PATH + "; then the sums "
-                                   "over a group's heads and of da in a fixed order"},
+                      "bf16_path": "ssd_chunk_bwd_wg_kernel: " + WG_PATH + "; then the sums "
+                                   "over a group's slices of heads, each head's dcum and ddt, "
+                                   "and da, in a fixed order"},
 }
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 #: the kernels whose bf16 inputs run on the tensor cores: (device kernel of
@@ -277,8 +291,10 @@ FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 TENSOR_CORE = {
     **{name: (f"fa::{name}_tc_kernel<", f"fa::{name}_kernel<", len(fa.HEAD_DIMS))
        for name in FLASH},
-    **{name: (f"ssd::{name}_tc_kernel<", f"ssd::{name}_kernel<",
-              len(sc.HEAD_DIMS) * len(sc.STATE_DIMS)) for name in ("ssd_chunk", "ssd_chunk_bwd")},
+    "ssd_chunk": ("ssd::ssd_chunk_tc_kernel<", "ssd::ssd_chunk_kernel<",
+                  len(sc.HEAD_DIMS) * len(sc.STATE_DIMS)),
+    "ssd_chunk_bwd": ("ssd::ssd_chunk_bwd_wg_kernel<", "ssd::ssd_chunk_bwd_kernel<",
+                      len(sc.HEAD_DIMS) * len(sc.STATE_DIMS)),
 }
 
 
@@ -328,8 +344,8 @@ def memory_bound_kernels(widths) -> dict[str, dict[str, int]]:
     named by their launch geometry, which the width alone decides; widths
     that share one are named once), the backward's fixed-order sum, and
     every ``adam::adam_kernel<P, G, S>`` (the paths' two among the eight),
-    and the SSD backward's fixed-order sums (over a group's heads, in both
-    dtypes, and of da)."""
+    and the SSD backward's fixed-order sums (over a group's heads or slices
+    of heads, in both dtypes, and of da) and its heads' last step."""
     rows = TRAIN_BATCH * SEQ
     norm = {"_ZN2rn25rmsnorm_bwd_reduce_kernel": 1}
     for d in widths:
@@ -338,7 +354,8 @@ def memory_bound_kernels(widths) -> dict[str, dict[str, int]]:
             norm[f"_ZN2rn{name}I13__nv_bfloat16Li{g['threads_per_row']}"
                  f"ELi{g['max_vectors_per_thread']}E"] = 1
     return {"rmsnorm": norm, "fused_adam": {"_ZN4adam11adam_kernelI": 8},
-            "ssd_chunk": {"_ZN3ssd17bwd_reduce_kernelI": 2, "_ZN3ssd13bwd_da_kernel": 1}}
+            "ssd_chunk": {"_ZN3ssd17bwd_reduce_kernelI": 2, "_ZN3ssd13bwd_da_kernel": 1,
+                          "_ZN3ssd16bwd_final_kernel": 1}}
 
 
 def expect_no_spills(what, kernels, count) -> None:
@@ -359,14 +376,33 @@ def phase_build(widths) -> None:
          ptxas=info["ptxas"])
     # every tensor-core kernel, one per instantiation, spills nothing; nor
     # do the memory-bound kernels of the training paths
-    for name, (_, _, count) in TENSOR_CORE.items():
+    for name, (tc, _, count) in TENSOR_CORE.items():
+        bare = tc.split("::")[1].rstrip("<")
         expect_no_spills(f"{name}'s tensor-core kernels",
                          [k for k in info["ptxas"][build.ENTRY_POINTS[name]]
-                          if f"{name}_tc_kernel" in k["kernel"]], count)
+                          if bare in k["kernel"]], count)
     for name, prefixes in memory_bound_kernels(widths).items():
         for prefix, count in prefixes.items():
             expect_no_spills(prefix, [k for k in info["ptxas"][name]
                                       if k["kernel"].startswith(prefix)], count)
+    emit("build_sass", ssd_chunk_bwd_hgmma=wgmma_instructions(info["paths"]["ssd_chunk"]))
+
+
+def wgmma_instructions(library) -> dict[str, int]:
+    """The bf16 SSD backward runs its products on wgmma: ``HGMMA``
+    instructions in the SASS of each instantiation of its kernel
+    (``cuobjdump -sass`` of the built library); raises where one has none."""
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "ssd_chunk_bwd_wg_kernel" in name:
+            counts[name] = part.count("HGMMA")
+    if len(counts) != TENSOR_CORE["ssd_chunk_bwd"][2] or not all(counts.values()):
+        raise AssertionError(f"ssd_chunk_bwd_wg_kernel without HGMMA in its SASS: {counts}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -666,8 +702,14 @@ def tc_grid(name, dims) -> dict:
     """Launch geometry of a tensor-core kernel, from its library's
     ``<name>_grid`` entry point: blocks, resident blocks an SM (the occupancy
     calculator), threads and dynamic shared memory a block.  ``dims``: a flash
-    case, or the SSD chunk's (Bt, nc, Q, H, hp, G, N) (forward or backward)."""
-    if name.startswith("ssd_chunk"):
+    case, or the SSD chunk's (Bt, nc, Q, H, hp, G, N) (forward or backward:
+    the backward's main kernel, a slice of heads as ``ssd_bwd_geometry``
+    cuts them)."""
+    if name == "ssd_chunk_bwd":
+        Bt, nc, Q, H, hp, G, N = dims
+        R = sc.ssd_bwd_geometry(Bt, nc, Q, H, G, hp, N)["slice_heads"]
+        args = (Bt, nc, Q, H, G, hp, N, R)
+    elif name == "ssd_chunk":
         Bt, nc, _, H, hp, _, N = dims
         args = (Bt, nc, H, hp, N)
     else:
@@ -1354,7 +1396,7 @@ SSD_BWD_ROW_FLOOR = 1.0
 
 
 def ssd_bwd_tc_db_dc(x, dt, b, c, a, dy, dstates):
-    """db and dc as the bf16 backward kernel (``ssd_chunk_bwd_tc_kernel``)
+    """db and dc as the bf16 backward kernel (``ssd_chunk_bwd_wg_kernel``)
     forms them, in plain PyTorch: ds = dt_j·⟨dy_i, x_j⟩·L_ij in fp32, rounded
     to bf16 once before ``dsᵀ·C`` and ``ds·B``; w_j·dt_j·x_j and dS rounded
     to bf16 before the states' term of dB; fp32 sums over the group's heads.
@@ -1456,14 +1498,16 @@ def check_ssd_bwd(args, cots, what, faults=False) -> dict:
 
 
 def ssd_bwd_planted_faults(args, cots, want, what) -> dict:
-    """What the bf16 row checks read on three faults the backward kernel
+    """What the bf16 row checks read on four faults the backward kernel
     could have, built in fp32 for batch 0, chunk 0 and rounded as the kernel
     rounds: dC and dB without the diagonal 64 x 64 key tile of ds of the last
     row tile (the pairs with the least decay), held against
     ``ssd_bwd_tc_db_dc``; dC without the pairs j = i in the chunk's first 8
-    rows, which lie below the median row's norm, held against it too; and dx
+    rows, which lie below the median row's norm, held against it too; dx
     without the states' term of du, w_j·(B_j dS), held against the plain
-    version.  Each must read above its tolerance."""
+    version; and dB and dC with the last head of the first slice of heads
+    (``ssd_bwd_geometry``) left out of the block's sum, held against
+    ``ssd_bwd_tc_db_dc``.  Each must read above its tolerance."""
     x, dt, b, c, a = args
     dy, dS, _ = cots
     Q, H = x.shape[2], x.shape[3]
@@ -1493,6 +1537,10 @@ def ssd_bwd_planted_faults(args, cots, want, what) -> dict:
     w = torch.exp(cum[-1] - cum)                                    # (Q,H)
     states_term = torch.einsum("jhn,hnp->jhp", bh, dS[0, 0].float()) * (w * dtf)[..., None]
     dx_want = want[0][0, 0]
+    left = sc.ssd_bwd_geometry(1, 1, Q, H, G, x.shape[4], N)["slice_heads"] - 1
+    x_left = one(x).clone()
+    x_left[:, :, :, left] = 0                   # the head's ds and states term vanish
+    db_l, dc_l = ssd_bwd_tc_db_dc(x_left, *(one(t) for t in (dt, b, c)), a, one(dy), one(dS))
     out = {"ssd_bwd_diagonal_key_tile_of_ds_dropped": {
                "dc_row_rel": row_rel_err((dc_m[rows] - dc_tile).to(b.dtype), dc_m[rows]),
                "db_row_rel": row_rel_err((db_m[rows] - db_tile).to(b.dtype), db_m[rows])},
@@ -1500,7 +1548,10 @@ def ssd_bwd_planted_faults(args, cots, want, what) -> dict:
                "dc_row_rel": row_rel_err(dc_first.to(b.dtype), dc_m),
                "rows_norm_over_median": float(norms[first].max() / norms.median())},
            "ssd_bwd_states_term_of_du_left_out": {
-               "dx_row_rel": row_rel_err((dx_want.float() - states_term).to(x.dtype), dx_want)}}
+               "dx_row_rel": row_rel_err((dx_want.float() - states_term).to(x.dtype), dx_want)},
+           "ssd_bwd_head_of_a_slice_left_out_of_db_dc": {
+               "head": left, "db_row_rel": row_rel_err(db_l[0, 0].to(b.dtype), db_m),
+               "dc_row_rel": row_rel_err(dc_l[0, 0].to(b.dtype), dc_m)}}
     tol = {"dc_row_rel": SSD_BWD_TC_ROW_RTOL, "db_row_rel": SSD_BWD_TC_ROW_RTOL,
            "dx_row_rel": BF16_ROW_RTOL}
     missed = {f"{fault}.{key}": v for fault, r in out.items() for key, v in r.items()
@@ -1546,9 +1597,28 @@ def check_ssd_bwd_bf16_small() -> dict:
     return out
 
 
+def device_split(fn, reps: int) -> dict[str, float]:
+    """ms a call of each device kernel ``fn`` launches, by torch.profiler
+    over ``reps`` calls after one warm-up: the kernel's name (without its
+    arguments) -> its device time summed over the run, over ``reps``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ms, _, key in device_rows(prof):
+        name = key.removeprefix("void ").split("(")[0]
+        out[name] = out.get(name, 0.0) + ms / reps
+    return out
+
+
 def time_ssd_bwd(Bt, nc, Q, H, hp, G, N) -> dict:
     """The backward kernel at the training shape, bf16: checked with planted
-    faults, timed beside its plain version."""
+    faults, timed beside its plain version; ``split_ms``: the call's time by
+    device kernel (torch.profiler), and what of ``ms`` no kernel took."""
     args = ssd_inputs(16, Bt, nc, Q, H, hp, G, N, torch.bfloat16)
     cots = ssd_cotangents(17, args)
     what = f"B={Bt} nc={nc} Q={Q} H={H} hp={hp} N={N} bf16"
@@ -1565,12 +1635,15 @@ def time_ssd_bwd(Bt, nc, Q, H, hp, G, N) -> dict:
                        "two calls equal bit for bit",
            "planted_faults": chk["planted_faults"],
            "ms": time_ms(lambda: sc.ssd_chunk_bwd_cuda(*args, *cots), 5),
+           "split_ms": device_split(lambda: sc.ssd_chunk_bwd_cuda(*args, *cots), 5),
+           "scratch_bytes": sc.ssd_bwd_geometry(Bt, nc, Q, H, G, hp, N)["scratch_bytes"],
            "plain_ms": time_ms(lambda: sc.ssd_chunk_bwd_plain(*args, *cots), 2),
            "library_ms": None, "library_note": "no PyTorch call computes it",
            "grid": tc_grid("ssd_chunk_bwd", (Bt, nc, Q, H, hp, G, N)),
            **ssd_bwd_bound(Bt, nc, Q, H, hp, G, N, 2)}
     torch.cuda.empty_cache()
     out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["split_ms"]["no kernel"] = out["ms"] - sum(out["split_ms"].values())
     return out
 
 
@@ -1840,6 +1913,10 @@ def fit_and_check(cfg, batch: int, steps: int, optimizer: str = "adamw",
     with patched(moe, "_aux_loss", recording):
         logs = tr.fit(steps=steps, batch_override=batch)
     launches = dict(ops.LAUNCHES)
+    # the timed steps are done: the host-only processes waiting for this
+    # phase's checkpoint I/O start now (``PENDING_HOST_JOBS``)
+    HOST_JOBS.update(start_host_jobs(PENDING_HOST_JOBS))
+    PENDING_HOST_JOBS.clear()
     if tr.ckpt:
         tr.ckpt.close()
     peak = torch.cuda.max_memory_allocated()
@@ -2487,7 +2564,9 @@ def phase_serve(cfgs, profile: bool) -> dict:
     out = {}
     for cfg in cfgs:
         res = serve_model(cfg, profile)
-        emit("serve", **res)
+        full = get_config(cfg.name).n_layers
+        emit("serve", **res, **({"reduced": f"n_layers {full} -> {cfg.n_layers} (the script's "
+                                            "time limit)"} if cfg.n_layers < full else {}))
         out[f"serve_{cfg.name}"] = res["launches"]
         torch.cuda.empty_cache()
     return out
@@ -2838,22 +2917,19 @@ def phase_dryrun() -> None:
     shards: no device): per cell the FLOPs a device and global, the
     collectives by kind, the argument bytes a device and the wall seconds.
     A non-zero exit fails the phase, and so does a cell whose global FLOPs
-    are not positive or exceed its ranks' FLOPs together."""
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    are not positive or exceed its ranks' FLOPs together.  The cells run
+    side by side in processes of their own (``start_host_jobs``: started
+    beside the card's phases), without the card."""
+    out_dir, dirs, futures = host_job("dryrun", "dryrun")
     try:
         cells = {}
-        for arch, shape in DRYRUN_CELLS:
-            t0 = time.time()
-            proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                                   "--arch", arch, "--shape", shape, "--mesh", "both",
-                                   "--out", out_dir], env=env, capture_output=True, text=True,
-                                  timeout=600)
+        for (arch, shape), cell_dir, (proc, secs) in zip(DRYRUN_CELLS, dirs, collect(futures),
+                                                         strict=True):
             if proc.returncode:
                 raise AssertionError(f"dryrun {arch} {shape}: exit {proc.returncode}\n"
                                      f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-            for name in sorted(os.listdir(out_dir)):
-                with open(os.path.join(out_dir, name)) as f:
+            for name in sorted(os.listdir(cell_dir)):
+                with open(os.path.join(cell_dir, name)) as f:
                     row = json.load(f)
                 # flops_global counts the step once for the mesh; each rank's
                 # flops is its share or more (replicated work on every rank)
@@ -2865,7 +2941,7 @@ def phase_dryrun() -> None:
                     k: row[k] for k in ("flops", "flops_global", "n_collectives",
                                         "collective_bytes", "argument_bytes", "lower_s",
                                         "wall_s")}
-            cells[f"{arch}__{shape}__process_s"] = time.time() - t0
+            cells[f"{arch}__{shape}__process_s"] = secs
         emit("dryrun", meshes={"pod16x16": [16, 16], "pod2x16x16": [2, 16, 16]},
              process_group="fake, 512 ranks; meta local shards", cells=cells)
     finally:
@@ -3277,20 +3353,68 @@ MONET_CLI = (
 )
 
 
-def side_by_side(argvs, cwd=None) -> list[tuple[subprocess.CompletedProcess, float]]:
-    """Each argv run by this interpreter (``PYTHONPATH=src``) in a process of
-    its own on the card's host, all at once: (the finished process, its host
-    seconds) for each."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+def side_by_side(argvs, cwd=None, env=None, timeout=300) -> list[Future]:
+    """Each argv run by this interpreter (``PYTHONPATH=src``, and ``env``) in
+    a process of its own on the card's host, all started now: a future of
+    (the finished process, its host seconds) for each (``collect``)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), **(env or {}))
 
     def run(argv):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, *argv], env=env, capture_output=True, text=True,
-                              timeout=300, cwd=cwd)
+                              timeout=timeout, cwd=cwd)
         return proc, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(argvs)) as pool:
-        return list(pool.map(run, argvs))
+    pool = ThreadPoolExecutor(len(argvs))
+    futures = [pool.submit(run, argv) for argv in argvs]
+    pool.shutdown(wait=False)
+    return futures
+
+
+def collect(futures) -> list[tuple[subprocess.CompletedProcess, float]]:
+    return [f.result() for f in futures]
+
+
+def start_host_jobs(phases) -> dict:
+    """The processes of ``phases`` that need no device (``dryrun``'s fake
+    process group, ``monet_cli``'s CLIs, ``examples``' host twins), started
+    now so that they run beside the card's phases; each phase collects its
+    own, and starts it itself when it was not started earlier.  Each gets a
+    directory of its own under ``$TMPDIR``, which its phase removes."""
+    jobs = {}
+    if "dryrun" in phases:
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        dirs = [os.path.join(out_dir, f"{arch}__{shape}") for arch, shape in DRYRUN_CELLS]
+        for d in dirs:
+            os.mkdir(d)
+        jobs["dryrun"] = (out_dir, dirs, side_by_side(
+            [["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--mesh",
+              "both", "--out", d] for (arch, shape), d in zip(DRYRUN_CELLS, dirs, strict=True)],
+            env={"CUDA_VISIBLE_DEVICES": ""}, timeout=600))
+    if "monet_cli" in phases:
+        jobs["monet_cli"] = side_by_side([["-m", *argv] for _, argv, _ in MONET_CLI])
+    if "examples" in phases:
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_host_twins_")
+        jobs["examples_host"] = (out_dir, side_by_side(
+            [[os.path.join(EXAMPLES, f"{name}.py"), *args,
+              *(["--out", os.path.join(out_dir, f"{name}.csv")] if rows else [])]
+             for name, args, rows in HOST_TWINS], cwd=out_dir))
+    return jobs
+
+
+#: host jobs started early (``start_host_jobs``), by the name of the part
+#: that collects them
+HOST_JOBS: dict = {}
+#: the phases whose host jobs the next train phase starts after its timed
+#: steps, beside its checkpoint's write, read-back and comparison
+PENDING_HOST_JOBS: list = []
+
+
+def host_job(name: str, phase: str):
+    """The started job of ``name`` (``start_host_jobs``), or one started now."""
+    if name not in HOST_JOBS:
+        HOST_JOBS.update(start_host_jobs([phase]))
+    return HOST_JOBS.pop(name)
 
 
 def phase_monet_cli(cfg) -> None:
@@ -3299,7 +3423,7 @@ def phase_monet_cli(cfg) -> None:
     seconds; then MONET's KV bytes a token at ``cfg``'s widths (its
     GPT-2-shaped serving graph) beside the port's real cache, as ``serve``
     allocates it (``init_cache``, ``SERVE_BATCH`` × ``SERVE_MAX_SEQ``)."""
-    done = side_by_side([["-m", *argv] for _, argv, _ in MONET_CLI])
+    done = collect(host_job("monet_cli", "monet_cli"))
     runs = {}
     for (name, argv, want), (proc, secs) in zip(MONET_CLI, done, strict=True):
         if proc.returncode or want not in proc.stdout:
@@ -3580,14 +3704,12 @@ def phase_examples_ga() -> None:
 
 def phase_examples_host() -> None:
     """(d) the seven host twins, each ``python examples/port/<name>.py`` in a
-    process of its own, side by side: exit 0, the CSV's rows as on the CPU,
-    host seconds."""
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_host_twins_")
+    process of its own, side by side (``start_host_jobs``): exit 0, the CSV's
+    rows as on the CPU, host seconds."""
+    out_dir, futures = host_job("examples_host", "examples")
     csv_path = lambda name: os.path.join(out_dir, f"{name}.csv")
     try:
-        done = side_by_side([[os.path.join(EXAMPLES, f"{name}.py"), *args,
-                              *(["--out", csv_path(name)] if rows else [])]
-                             for name, args, rows in HOST_TWINS], cwd=out_dir)
+        done = collect(futures)
         runs = {}
         for (name, args, rows), (proc, secs) in zip(HOST_TWINS, done, strict=True):
             got = None
@@ -3686,6 +3808,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         lap("train_mla")
     if "train_moe" in phases:
+        # the host-only processes of later phases run beside this phase's
+        # checkpoint (36 GB written, read back and compared), after its timed steps
+        PENDING_HOST_JOBS.extend(phases)
         launches["train_moe"] = phase_train(
             replace(olmoe, n_layers=MOE_LAYERS), "train_moe", args.profile, batch=MOE_BATCH,
             steps=MOE_STEPS, reduced=f"n_layers 16 -> {MOE_LAYERS} (weights, gradients and "
@@ -3705,7 +3830,8 @@ def main() -> None:
         launches.update(phase_train_mesh(gemma, mamba))
         lap("train_mesh")
     if "serve" in phases:
-        launches.update(phase_serve((gemma, mamba, mla, olmoe), args.profile))
+        launches.update(phase_serve((gemma, mamba, replace(mla, n_layers=SERVE_MLA_LAYERS),
+                                     olmoe), args.profile))
         lap("serve")
     if "parity" in phases:
         phase_parity()
@@ -3740,7 +3866,9 @@ def main() -> None:
         launches.update(more)
         lap("examples")
 
-    emit("done", phases=phases, seconds=round(time.time() - t0, 1), phase_seconds=seconds)
+    total = time.time() - t0
+    emit("done", phases=phases, seconds=round(total, 1), phase_seconds=seconds,
+         seconds_kept_of_limit=round(TIME_LIMIT_S - total, 1))
     if timed is not None and {"train", "train_ssm"} <= set(launches):
         line = []
         for name, meta in KERNELS.items():
@@ -3797,7 +3925,8 @@ def main() -> None:
                 for key in ("library_note", "backward_plain_ms", "other_shapes", "grid",
                             "max_row_rel_err", "tol_row_rel", "dscale_rel_err",
                             "tol_dscale_rel", "autograd_of_plain_ms", "planted_faults",
-                            "tree", "tol_note", "share_of_bound", "by_output"):
+                            "tree", "tol_note", "share_of_bound", "by_output", "split_ms",
+                            "scratch_bytes"):
                     if key in t:
                         entry[key] = t[key]
             if timed_lm is not None and name in timed_lm:

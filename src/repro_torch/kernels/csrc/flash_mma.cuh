@@ -129,9 +129,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // The A fragment of the 16-deep step over columns [16 j, 16 j + 16) of a
-// 16-row fp32 C tile held as 8-column fragments c[2 j], c[2 j + 1].
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
+// 16-row fp32 C tile held as 8-column fragments c[2 j], c[2 j + 1] (4 floats
+// each; wgmma's accumulators are such fragments side by side).
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float* c0, const float* c1) {
   a[0] = pack_bf16(c0[0], c0[1]);
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);

@@ -86,41 +86,61 @@
 // Q x Q products (s = C B^T once a group, the other four a head) and the two
 // states products are 0.138 TFLOP, 0.140 ms at the bf16 tensor-core rate,
 // against 0.566 GB of inputs and outputs, 0.169 ms.
-// Three device kernels, in a fixed order and with no atomics, so that every
-// sum is the same from run to run:
-//   1. one block per (batch, chunk, head): everything of one head, in two
-//      walks over the causal tile pairs, as flash's backward splits dk/dv from
-//      dq.  Walk 1 holds a column tile j (B_j, x_j) and streams the row tiles
-//      i >= j (C_i, dy_i): s, P, dP, ds recomputed from the inputs (nothing
-//      the forward wrote is read), du_j += P^T dy_i, dB_j += ds^T C_i, the
-//      column sums of dP P in registers, its row sums over the warps through
-//      shared memory; at the end of each column tile the states' terms (dS
-//      read once a block), dx_j, the direct part of ddt_j.  Walk 2 holds a row
-//      tile i (C_i, dy_i) and streams j <= i (B_j, x_j): dP, ds again and
-//      dC_i += ds B_j.  Then one warp turns the sums into dcum, scans it from
-//      the end into ddt and sums this head's share of da.  dB and dC of the
-//      head go to fp32 partials (B·nc·H, Q, N), da's to (B·nc·H).
-//   2. bwd_reduce_kernel sums the partials of a group's heads in head order
-//      into db, dc (b's dtype); 3. bwd_da_kernel sums da over batch and chunks
-//      in order.  At mamba2's shape the partials are 1.07 GB of fp32, written
-//      once and read once.
-//   Distance from the bound at mamba2's shape (chip_smoke.py on an NVIDIA H100
-//   80GB HBM3 at a 700 W power limit): 2.64 ms against 0.169 ms, 6.4 %, with
-//   2 blocks of 128 threads an SM (219 registers at hp 64, N 128); the
-//   backward it replaced re-ran the plain forward (9.3 ms) and took autograd
-//   of it (17.7 ms).  Not measured:
-//   how the time splits between the walks, the partials and the sums.
-// * bf16 -> ssd_chunk_bwd_tc_kernel: 4 warps, 16 rows of the held tile each,
-//   every product an `mma.sync.m16n8k16` of bf16 operands into fp32: s =
-//   B_j C_i^T and dP = x_j dy_i^T (times dt_j in fp32), P and ds rounded to
-//   bf16 once before du += P^T dy_i and dB += ds^T C_i (walk 1) and dC += ds B_j
-//   (walk 2); dS rounded to bf16 in shared memory, w_j B_j and w_j dt_j x_j
-//   rounded once before they meet it.  exp only where i >= j.  Held and
-//   streamed tiles through the same two-stage cp.async ring as the forward.
-// * fp32 -> ssd_chunk_bwd_kernel: the same walks with IEEE fp32 FMAs from
-//   fp32 shared tiles, for the 5e-5 parity of fp32 gradients.
+// Every sum in a fixed order and with no float atomics, so that the gradients
+// are the same from run to run.
+// * bf16 -> ssd_chunk_bwd_wg_kernel, then three small kernels.  A block owns
+//   (batch, chunk, group, slice of R heads, row tile t): R consecutive heads of
+//   the group (ssd_chunk.py's ssd_bwd_geometry: the largest divisor of H / G
+//   up to 16; at mamba2's shape R = 16, 4 slices, 1,024 blocks) and the 64 rows
+//   of tile t, as a column tile (walk 1: du_t, dx_t, dB_t, the sums of dP P,
+//   over the row tiles i >= t) and as a row tile (walk 2: dC_t, over the
+//   column tiles j <= t): nt + 1 tile pairs a head in every block, so the
+//   blocks are even, and the 7.76 waves of one block an SM end in a tail of
+//   0.76 wave (no persistent grid: 16 heads a block already leave few blocks).
+//   The block's B_0..B_t and C_t..C_{nt-1} are copied once and held in shared
+//   memory for all its heads.  Two warpgroups take the heads alternately and
+//   sum dB_t and dC_t over theirs in fp32 registers, then warpgroup 0's plus
+//   warpgroup 1's through shared memory: one (Q, N) partial of dB and one of
+//   dC a slice cross device memory (with the heads' vectors 96.5 MB of scratch
+//   at mamba2's shape, from 1.07 GB of per-head partials).  Every product is a
+//   `wgmma` m64nNk16 of one warpgroup (64 rows): s^T = B_t C_i^T and
+//   dP^T = x_t dy_i^T from shared memory; P and ds packed from the accumulators
+//   into the register A operand of du += P^T dy_i and dB += ds^T C_i, and of
+//   dC += ds B_j in walk 2; the states' terms q = (w B_t) dS and
+//   dB += (w dt x_t) dS^T with A from registers, dS put into shared memory in
+//   bf16 once a head.  Tiles are swizzled (hopper.cuh) and copied by TMA, one
+//   box a 64-row sub-tile, into mbarrier rings of two held and two streamed
+//   tiles a warpgroup; thread 0 of the warpgroup issues each copy two tiles
+//   ahead.  No producer warp: with one (320 or 384 threads, setmaxnreg 232 or
+//   not) ptxas compiled the warpgroups for 168 registers, spilled and
+//   serialized the products (C7512); at 256 threads they take 254.  dt and
+//   cum of each head are kept from walk 1 for walk 2.  On the diagonal tile
+//   the exponent of a pair i < j is replaced by -inf before exp2 (L = 0, as
+//   the plain version's where), so no positive exponent is ever evaluated.
+//   Roundings: P, ds, w B_t, w dt x_t and dS to bf16 before their products,
+//   as ssd_chunk_tc_kernel's backward did (docs/torch_port.md).  s = B_t C_i^T
+//   is still formed once a head: its fp32 tiles, held for the heads, would
+//   need 64 KB more than the 216 KB a block has.  Then bwd_reduce_kernel sums
+//   the slices in order into db, dc (b's dtype); bwd_final_kernel turns each
+//   head's row and column sums into dcum, scans it into ddt and sums the
+//   head's share of da; bwd_da_kernel sums da over batch and chunks.
+//   Distance from the bound at mamba2's shape (chip_smoke.py, NVIDIA H100
+//   80GB HBM3 at a 700 W power limit): 1.04 ms a call against 0.169 ms, 16 %;
+//   the main kernel 0.73, the slices' sum 0.022, the heads' last step 0.038,
+//   da 0.004, the rest the wrapper's host time.  The mma.sync kernel it
+//   replaced (one block a head, its partials 1.07 GB): 2.65 ms, 6.4 % (its
+//   kernel 1.76 ms, the heads' sum 0.35).  What is left, from a clock64 count
+//   of the warpgroups' phases (scripts/ssd_bwd_phases.py): waits on the
+//   products 28 %, the elementwise passes 20 %, the states' terms 16 %, each
+//   head's start 16 % (its dS load 7 %); two warpgroups an SM hide little
+//   latency.
+// * fp32 -> ssd_chunk_bwd_kernel: one block per (batch, chunk, head), the same
+//   walks with IEEE fp32 FMAs from fp32 shared tiles, for the 5e-5 parity of
+//   fp32 gradients; dB and dC of each head go to fp32 partials (B·nc·H, Q, N)
+//   that bwd_reduce_kernel sums in head order, then bwd_da_kernel.
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
+#include "hopper.cuh"
 
 namespace ssd {
 
@@ -1001,460 +1021,606 @@ struct FmaB {
   }
 };
 
-// ---- backward, bf16 on the tensor cores ---------------------------------------------
+// ---- backward, bf16: two warpgroups on wgmma, fed by TMA --------------------------
 
-template <int HP, int N>
-struct TcB {
-  static constexpr int NTH = 128;  // 4 warps, 16 rows of the held tile each
-  static constexpr int LDN = N + 8, LDX = HP + 8;
-  // held N- and hp-tiles, two stages of streamed N- and hp-tiles, dS [N][LDX];
-  // the warps' row sums of dP P [4][BT], the vectors
-  static constexpr size_t SMEM = sizeof(bf16) * (3 * BT * LDN + 3 * BT * LDX + N * LDX) +
-                                 sizeof(float) * (4 * BT + BWD_VEC_FLOATS);
+// The four bf16 inputs as 5-d TMA maps: dim 0 the row's columns (hp or N),
+// then row, head (group for b and c), chunk and batch in the order of their
+// strides; `ord[m][k]` is which of (row, head, chunk, batch) dim k + 1 of map
+// m (x, dy, b, c) is.
+struct WgMaps {
+  CUtensorMap x, dy, b, c;
 };
 
-// The A fragment's rows g (a0, a2) and g + 8 (a1, a3) times f0 and f8 in fp32,
-// rounded back to bf16.
-__device__ __forceinline__ void scale_rows(uint32_t (&af)[4], float f0, float f8) {
-  af[0] = scale_pair(af[0], f0, f0);
-  af[1] = scale_pair(af[1], f8, f8);
-  af[2] = scale_pair(af[2], f0, f0);
-  af[3] = scale_pair(af[3], f8, f8);
-}
+struct WgArgs {
+  BwdArgs p;    // pdb, pdc: a slice's partials (batch, chunk, group, slice, Q, N); pda a head's
+  float* pvec;  // a head's vectors (batch, chunk, head, nt + 3, Q): see bwd_final_kernel
+  int ord[4][4];
+  int nc, G, S, R, nt;  // chunks, groups, slices a group, heads a slice, row tiles
+};
 
-// The row sums of dP P of the last pair of walk 1 (sRed: [warp][column]), over
-// the warps in order, into row tile `tile` of v.row.
-__device__ __forceinline__ void add_row_sums(const float* sRed, int tile, const BwdVecs& v) {
-  const int i = threadIdx.x;
-  if (i < BT)
-    v.row[tile * BT + i] += ((sRed[i] + sRed[BT + i]) + sRed[2 * BT + i]) + sRed[3 * BT + i];
-}
-
-// grid (nc, H, batch); one block per chunk of one head.
 template <int HP, int N>
-__global__ void __launch_bounds__(TcB<HP, N>::NTH, 2) ssd_chunk_bwd_tc_kernel(BwdArgs p) {
-  using C = TcB<HP, N>;
-  constexpr int NTH = C::NTH, LDN = C::LDN, LDX = C::LDX;
-  constexpr int NX = HP / 8, NN = N / 8;  // 8-wide column tiles of hp- and N-wide results
-  const int Q = p.Q;
-  const int nt = (Q + BT - 1) / BT, QP = nt * BT;
-  const int c = blockIdx.x, h = blockIdx.y, bb = blockIdx.z;
-  const int g = h / p.rep;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, t = lane & 3;
-  const int l0 = warp * 16 + gq;  // the thread's rows l0, l0 + 8 of the held tile
+struct Wg {
+  // two warpgroups; a thread of each issues its own copies (see the note)
+  static constexpr int NTH = 256;
+  static constexpr int TILE_N = BT * N * 2, TILE_X = BT * HP * 2;  // bytes of a bf16 tile
+  static constexpr int HELD = 2, RING = 2;  // a warpgroup's held and streamed hp-tiles
+  static constexpr int MAXH = 8;            // its heads: a slice of at most 16 (SLICE_HEADS)
+  // a warpgroup's own: its held and streamed tiles, dS (N x hp bf16), dt and
+  // cum of each of its heads (QMAX each), two [4][BT] row-sum buffers, the
+  // warps' totals of a scan
+  static constexpr int WGB =
+      ((HELD + RING) * TILE_X + N * HP * 2 + (2 * MAXH * QMAX + 2 * 4 * BT + 4) * 4 + 1023) /
+      1024 * 1024;
+  static constexpr int BARS = (1 + 2 * (HELD + RING)) * 8;  // B/C in; each tile in
+  // B_0..B_t and C_t..C_{nt-1} (nt + 1 tiles), the warpgroups', the barriers,
+  // and 1024 bytes to align the base (the swizzle's period)
+  static size_t smem(int nt) { return 1024 + (size_t)(nt + 1) * TILE_N + 2 * WGB + BARS; }
+};
 
-  extern __shared__ float4 smem_f4[];
-  bf16* sHN = reinterpret_cast<bf16*>(smem_f4);  // held N-tile [BT][LDN]
-  bf16* sHX = sHN + BT * LDN;                    // held hp-tile [BT][LDX]
-  bf16* sRN = sHX + BT * LDX;                    // streamed N-tiles [2][BT][LDN]
-  bf16* sRX = sRN + 2 * BT * LDN;                // streamed hp-tiles [2][BT][LDX]
-  bf16* sDS = sRX + 2 * BT * LDX;                // dS [N][LDX]
-  float* sRed = reinterpret_cast<float*>(sDS + N * LDX);  // [4][BT]
-  const BwdVecs v(sRed + 4 * BT);
+// Rows [64 tile, 64 tile + 64) of head (or group) hg of a D-wide input into
+// a canonical tile at dst: a box a sub-tile.
+template <int D>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, const int* ord,
+                                         int tile, int hg, int c, int bb, uint64_t* bar) {
+  const int logical[4] = {tile * BT, hg, c, bb};
+  const int c1 = logical[ord[0]], c2 = logical[ord[1]], c3 = logical[ord[2]],
+            c4 = logical[ord[3]];
+  constexpr int C = hop::Sw<D>::C;
+#pragma unroll
+  for (int s = 0; s < D / C; ++s)
+    hop::tma_load(dst + s * BT * C, map, bar, s * C, c1, c2, c3, c4);
+}
 
-  const bf16* xp = (const bf16*)p.x + bb * p.sx[0] + c * p.sx[1] + h * p.sx[3];
-  const float* dtp = p.dt + bb * p.sd[0] + c * p.sd[1] + h * p.sd[3];
-  const bf16* bp = (const bf16*)p.b + bb * p.sb[0] + c * p.sb[1] + g * p.sb[3];
-  const bf16* cp = (const bf16*)p.c + bb * p.sc[0] + c * p.sc[1] + g * p.sc[3];
-  const bf16* yp = (const bf16*)p.dy + bb * p.sy[0] + c * p.sy[1] + h * p.sy[3];
-  const float* Sp = p.ds + bb * p.sS[0] + c * p.sS[1] + h * p.sS[2];
-  const float* dcp = p.dcum + bb * p.sk[0] + c * p.sk[1] + h * p.sk[3];
-  bf16* dxp = (bf16*)p.dx + bb * p.sdx[0] + c * p.sdx[1] + h * p.sdx[3];
-  float* ddtp = p.ddt + bb * p.sdd[0] + c * p.sdd[1] + h * p.sdd[3];
-  const int64_t blk = ((int64_t)bb * gridDim.x + c) * gridDim.y + h;
-  float* pdb = p.pdb + blk * Q * N;
-  float* pdc = p.pdc + blk * Q * N;
-  const float a = p.a[h * p.sa];
+// dt of rows 2 tid and 2 tid + 1 of one head's chunk (0 past Q): the
+// warpgroup's threads load the next head's while they work on this one.
+__device__ __forceinline__ void load_dt(float (&d)[2], const float* dtp, int64_t sdt, int Q,
+                                        int tid) {
+  d[0] = 2 * tid < Q ? dtp[(int64_t)(2 * tid) * sdt] : 0.f;
+  d[1] = 2 * tid + 1 < Q ? dtp[(int64_t)(2 * tid + 1) * sdt] : 0.f;
+}
 
-  // rows [r0, r0 + BT) of an N-wide and an hp-wide input into two tiles
-  auto load_pair = [&](bf16* dn, bf16* dx_, const bf16* srcn, int64_t strn, const bf16* srcx,
-                       int64_t strx, int r0) {
-    cp_rows<N, LDN, NTH>(dn, srcn, strn, r0, Q);
-    cp_rows<HP, LDX, NTH>(dx_, srcx, strx, r0, Q);
+// The chunk's dt of one head (d as load_dt gave it) and its prefix sums
+// times a into cum: each thread's two rows, a scan over the warp, the warps'
+// totals through `tot` (4 floats), in a fixed order.  Ends with the
+// warpgroup's barrier.
+__device__ __forceinline__ void wg_head_vectors(const float (&d)[2], float a, float* vdt,
+                                                float* vcum, float* tot, int tid, int bar) {
+  const int lane = tid & 31, warp = tid >> 5;
+  float s = d[0] + d[1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, s, o);
+    if (lane >= o) s += v;
+  }
+  float run = __shfl_up_sync(0xffffffffu, s, 1);
+  if (lane == 0) run = 0.f;
+  if (lane == 31) tot[warp] = s;
+  *reinterpret_cast<float2*>(vdt + 2 * tid) = make_float2(d[0], d[1]);
+  hop::bar_sync(bar, 128);
+  float base = 0.f;
+  for (int k = 0; k < warp; ++k) base += tot[k];
+  run += base;
+  run += d[0];
+  const float c0 = run * a;
+  run += d[1];
+  *reinterpret_cast<float2*>(vcum + 2 * tid) = make_float2(c0, run * a);
+  hop::bar_sync(bar, 128);
+}
+
+// The pair of bf16 at (r, c) of a D-wide 64-row canonical tile.
+template <int D>
+__device__ __forceinline__ uint32_t tile_pair(const bf16* tile, int r, int c) {
+  return *reinterpret_cast<const uint32_t*>(reinterpret_cast<const uint8_t*>(tile) +
+                                            hop::Sw<D>::off(r, c, BT));
+}
+
+// The A operand of the 16-deep step k of a D-wide 64-row canonical tile,
+// read from shared memory (rows jl0, jl0 + 8; the warp's quad column 2 q4),
+// each row's pair times f0 / f8 in fp32 and rounded back to bf16.
+template <int D>
+__device__ __forceinline__ void tile_a(uint32_t (&a)[4], const bf16* tile, int k, int jl0, int q4,
+                                       float f0, float f8) {
+  const int c = 16 * k + 2 * q4;
+  a[0] = scale_pair(tile_pair<D>(tile, jl0, c), f0, f0);
+  a[1] = scale_pair(tile_pair<D>(tile, jl0 + 8, c), f8, f8);
+  a[2] = scale_pair(tile_pair<D>(tile, jl0, c + 8), f0, f0);
+  a[3] = scale_pair(tile_pair<D>(tile, jl0 + 8, c + 8), f8, f8);
+}
+
+// The sums over the warp's 16 rows (over g = lane / 4) of a thread's 16
+// column values v[2 nb + e] (column 8 nb + 2 q4 + e of its two rows), by a
+// halving exchange with the lanes xor 16, 8 and 4: afterwards v[0] and v[1]
+// hold the sums of columns col and col + 1, col returned.
+__device__ __forceinline__ int rows_sum16(float (&v)[16], int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float send = b4 ? v[k] : v[k + 8];
+    v[k] = (b4 ? v[k + 8] : v[k]) + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float send = b3 ? v[k] : v[k + 4];
+    v[k] = (b3 ? v[k + 4] : v[k]) + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float send = b2 ? v[k] : v[k + 2];
+    v[k] = (b2 ? v[k + 2] : v[k]) + __shfl_xor_sync(0xffffffffu, send, 4);
+  }
+  const int slot = 8 * b4 + 4 * b3 + 2 * b2;  // v[0], v[1] are slots slot, slot + 1
+  return 8 * (slot >> 1) + 2 * (lane & 3);
+}
+
+// grid: one block per (batch, chunk, group, slice of R heads, row tile t),
+// t fastest; two warpgroups (see the note at the top of the file).
+template <int HP, int N>
+__global__ void __launch_bounds__(Wg<HP, N>::NTH, 1)
+    ssd_chunk_bwd_wg_kernel(const __grid_constant__ WgMaps maps, const WgArgs A) {
+  using W = Wg<HP, N>;
+  constexpr int NX = HP / 2, NN = N / 2;  // accumulators a thread of hp- and N-wide results
+  const BwdArgs& p = A.p;
+  const int Q = p.Q, nt = A.nt, R = A.R;
+  int blk = blockIdx.x;
+  const int t = blk % nt;
+  blk /= nt;
+  const int sl = blk % A.S;
+  blk /= A.S;
+  const int g = blk % A.G;
+  blk /= A.G;
+  const int c = blk % A.nc, bb = blk / A.nc;
+  const int H = A.G * p.rep;
+  const int h0 = g * p.rep + sl * R;  // the slice's first head
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~static_cast<uintptr_t>(1023));
+  bf16* sBC = reinterpret_cast<bf16*>(base);  // slot k <= t: B_k; slot k > t: C_{k-1}
+  uint8_t* wgbase = base + (size_t)(nt + 1) * W::TILE_N;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(wgbase + 2 * W::WGB);
+  // the exchange of the warpgroups' sums: slot nt (C_{nt-1}), free once both
+  // have left walk 1, 64 x N / 2 fp32
+  float* xch = reinterpret_cast<float*>(sBC + nt * BT * N);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = warp >> 2, wq = warp & 3, tid = threadIdx.x & 127;
+  // bars[0]: B and C in; warpgroup w's: its two held and two streamed tiles in
+  constexpr int HELD = W::HELD, RING = W::RING;
+  uint64_t* held_full = bars + 1 + (HELD + RING) * w;
+  uint64_t* ring_full = held_full + HELD;
+  bf16* held_buf = reinterpret_cast<bf16*>(wgbase + w * W::WGB);
+  bf16* ring_buf = held_buf + HELD * BT * HP;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 1 + 2 * (HELD + RING); ++k) hop::mbar_init(&bars[k], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The warpgroup's copies, in the order it consumes them, each into the
+  // slot the copy two (HELD, RING) before it frees: held tile m, streamed
+  // tile n.  Walk 1 holds x_t of each head and streams dy_t .. dy_{nt-1};
+  // walk 2 holds dy_t and streams x_0 .. x_t.  Issued by the warpgroup's
+  // thread 0.
+  const int nh = R > w ? (R - w + 1) / 2 : 0;  // heads w, w + 2, ...
+  auto issue_held = [&](int m) {
+    if (m >= 2 * nh) return;
+    const int walk = m >= nh, h = h0 + w + 2 * (m - walk * nh);
+    hop::fence_async_smem();
+    hop::mbar_expect_tx(&held_full[m & 1], W::TILE_X);
+    tma_tile<HP>(held_buf + (m & 1) * BT * HP, walk ? &maps.dy : &maps.x, A.ord[walk], t, h, c,
+                 bb, &held_full[m & 1]);
+  };
+  auto issue_ring = [&](int n) {
+    const int n0 = nh * (nt - t);
+    if (n >= n0 + nh * (t + 1)) return;
+    const int walk = n >= n0, per = walk ? t + 1 : nt - t, k = walk ? n - n0 : n;
+    const int h = h0 + w + 2 * (k / per), tile = (walk ? 0 : t) + k % per;
+    hop::fence_async_smem();
+    hop::mbar_expect_tx(&ring_full[n % RING], W::TILE_X);
+    tma_tile<HP>(ring_buf + (n % RING) * BT * HP, walk ? &maps.x : &maps.dy,
+                 A.ord[walk ? 0 : 1], tile, h, c, bb, &ring_full[n % RING]);
+  };
+  if (tid == 0) {
+    if (w == 0) {  // the block's B and C tiles, once: B_0..B_t, C_t..C_{nt-1}
+      hop::mbar_expect_tx(&bars[0], (nt + 1) * W::TILE_N);
+      for (int k = 0; k <= nt; ++k) {
+        if (k <= t)
+          tma_tile<N>(sBC + k * BT * N, &maps.b, A.ord[2], k, g, c, bb, &bars[0]);
+        else
+          tma_tile<N>(sBC + k * BT * N, &maps.c, A.ord[3], k - 1, g, c, bb, &bars[0]);
+      }
+    }
+    issue_held(0);
+    issue_held(1);
+    for (int n = 0; n < RING; ++n) issue_ring(n);
+  }
+  __syncwarp();
+
+  // ---- warpgroup w: heads w, w + 2, ... of the slice
+  const int q4 = lane & 3, jl0 = wq * 16 + (lane >> 2);  // rows jl0, jl0 + 8 of a tile
+  const int bar = 1 + w;                                    // the warpgroup's barrier
+  uint8_t* mine = wgbase + w * W::WGB;
+  bf16* sDS = reinterpret_cast<bf16*>(mine + (HELD + RING) * W::TILE_X);  // rows n, columns p
+  // dt and cum of the warpgroup's m-th head at vecs + 2 m QMAX, + QMAX
+  float* vecs = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(sDS) + N * HP * 2);
+  float* sRed = vecs + 2 * W::MAXH * QMAX;  // [2][4][BT]
+  float* sTot = sRed + 2 * 4 * BT;           // [4]
+  const bf16* sBt = sBC + t * BT * N;
+  const int64_t sp = (((int64_t)bb * A.nc + c) * A.G + g) * A.S + sl;  // the slice's partial
+  const int gj0 = t * BT + jl0;                                        // the thread's rows
+  float accN[NN];  // dB_t over walk 1's heads, then dC_t over walk 2's
+#pragma unroll
+  for (int i = 0; i < NN; ++i) accN[i] = 0.f;
+  auto ds_of = [&](int h) { return p.ds + bb * p.sS[0] + c * p.sS[1] + h * p.sS[2]; };
+  const bool ds_fast = p.sS[4] == 1 && p.sS[3] % 4 == 0 && p.sS[2] % 4 == 0 &&
+                       p.sS[1] % 4 == 0 && p.sS[0] % 4 == 0 && fa::aligned16(p.ds);
+  // dt of the warpgroup's next head, loaded while it works on this one
+  auto dt_of = [&](int h) { return p.dt + bb * p.sd[0] + c * p.sd[1] + h * p.sd[3]; };
+  float dtn[2] = {0.f, 0.f};
+  if (nh > 0) load_dt(dtn, dt_of(h0 + w), p.sd[2], Q, tid);
+  hop::mbar_wait(&bars[0], 0);
+  int hs = 0, rs = 0, buf = 0;
+
+  // the warpgroups' sums of accN, warpgroup 0's then 1's, into rows of `out`
+  // (a slice's (Q, N) partial), through the exchange buffer in two halves
+  auto combine = [&](float* out) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      hop::bar_sync(3, 256);  // both are past their walk and the previous half
+      if (w == 1) {
+#pragma unroll
+        for (int i = 0; i < NN / 2; ++i) xch[i * 128 + tid] = accN[half * NN / 2 + i];
+      }
+      hop::bar_sync(3, 256);
+      if (w == 0) {
+#pragma unroll
+        for (int i = 0; i < NN / 2; ++i) accN[half * NN / 2 + i] += xch[i * 128 + tid];
+      }
+    }
+    if (w == 0) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int gj = gj0 + 8 * h2;
+        if (gj < Q) {
+          float* row = out + (sp * Q + gj) * N + 2 * q4;
+#pragma unroll
+          for (int nb = 0; nb < N / 8; ++nb)
+            *reinterpret_cast<float2*>(row + 8 * nb) =
+                make_float2(accN[4 * nb + 2 * h2], accN[4 * nb + 2 * h2 + 1]);
+        }
+      }
+    }
+    hop::bar_sync(3, 256);
+#pragma unroll
+    for (int i = 0; i < NN; ++i) accN[i] = 0.f;
   };
 
-  // dS in bf16, read along whichever of its two last dims is contiguous
-  const bool n_inner = p.sS[3] == 1 && p.sS[4] != 1;
-  for (int idx = threadIdx.x; idx < N * HP; idx += NTH) {
-    const int n = n_inner ? idx % N : idx / HP, q = n_inner ? idx / N : idx % HP;
-    sDS[n * LDX + q] = __float2bfloat16(Sp[n * p.sS[3] + q * p.sS[4]]);
-  }
-  bwd_prologue<NTH>(p, dtp, a, Q, QP, v);
-
-  const int npairs = nt * (nt + 1) / 2;
-  float accN[NN][4];  // dB_j in walk 1, dC_i in walk 2
+  // ---- walk 1: column tile t held (B_t, x_t), row tiles it >= t streamed
+  // (C_it from the block's tiles, dy_it from the ring): du_t, dB_t, the sums
+  // of dP P, and at the end the states' terms
+  for (int r = w; r < R; r += 2) {
+    const int h = h0 + r;
+    const float a = p.a[h * p.sa];
+    float* vec = A.pvec + (((int64_t)bb * A.nc + c) * H + h) * (nt + 3) * Q;
+    hop::bar_sync(bar, 128);  // the previous head's readers of its tiles, vectors, dS are done
+    if (tid == 0 && hs > 0) issue_held(hs + 1);
+    // dS in bf16: 16-byte loads along p where rows of p are contiguous and
+    // aligned, all in flight at once; else along whichever dim is contiguous
+    const float* Sp = ds_of(h);
+    if (ds_fast) {
+      constexpr int ITEMS = (N * HP / 8 + 127) / 128;
+      float4 lo[ITEMS], hi[ITEMS];
 #pragma unroll
-  for (int n = 0; n < NN; ++n)
+      for (int k = 0; k < ITEMS; ++k) {
+        const int idx = tid + 128 * k;
+        if (idx < N * HP / 8) {
+          const float* src = Sp + (idx / (HP / 8)) * p.sS[3] + (idx % (HP / 8)) * 8;
+          lo[k] = fa::ld4(src);
+          hi[k] = fa::ld4(src + 4);
+        }
+      }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) accN[n][e] = 0.f;
-
-  // ---- walk 1: held column tile jt (B_j, x_j), streamed row tiles it >= jt (C_i, dy_i)
-  {
-    float du[NX][4];
+      for (int k = 0; k < ITEMS; ++k) {
+        const int idx = tid + 128 * k;
+        if (idx < N * HP / 8) {
+          const int n = idx / (HP / 8), p8 = idx % (HP / 8);
+          *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(sDS) +
+                                    hop::Sw<HP>::off(n, 8 * p8, N)) =
+              make_uint4(fa::pack_bf16(lo[k].x, lo[k].y), fa::pack_bf16(lo[k].z, lo[k].w),
+                         fa::pack_bf16(hi[k].x, hi[k].y), fa::pack_bf16(hi[k].z, hi[k].w));
+        }
+      }
+    } else {
+      const bool n_inner = p.sS[3] == 1 && p.sS[4] != 1;
+      for (int idx = tid; idx < N * HP / 8; idx += 128) {
+        const int n = n_inner ? idx % N : idx / (HP / 8);
+        const int p8 = n_inner ? idx / N : idx % (HP / 8);
+        const float* src = Sp + n * p.sS[3] + p8 * 8 * p.sS[4];
+        uint4 v;
+        v.x = fa::pack_bf16(src[0], src[p.sS[4]]);
+        v.y = fa::pack_bf16(src[2 * p.sS[4]], src[3 * p.sS[4]]);
+        v.z = fa::pack_bf16(src[4 * p.sS[4]], src[5 * p.sS[4]]);
+        v.w = fa::pack_bf16(src[6 * p.sS[4]], src[7 * p.sS[4]]);
+        *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(sDS) +
+                                  hop::Sw<HP>::off(n, 8 * p8, N)) = v;
+      }
+    }
+    hop::fence_async_smem();
+    // the head's dt and cum, kept for walk 2
+    float* vdt = vecs + 2 * hs * QMAX;
+    float* vcum = vdt + QMAX;
+    {
+      const float d[2] = {dtn[0], dtn[1]};
+      if (hs + 1 < nh) load_dt(dtn, dt_of(h + 2), p.sd[2], Q, tid);
+      wg_head_vectors(d, a, vdt, vcum, sTot, tid, bar);
+    }
+    const int hsl = hs & 1;
+    hop::mbar_wait(&held_full[hsl], (hs >> 1) & 1);
+    const bf16* sX = held_buf + hsl * BT * HP;
+    const float cj[2] = {vcum[gj0], vcum[gj0 + 8]};
+    const float dtj[2] = {vdt[gj0], vdt[gj0 + 8]};
+    float du[NX];
 #pragma unroll
-    for (int n = 0; n < NX; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) du[n][e] = 0.f;
+    for (int i = 0; i < NX; ++i) du[i] = 0.f;
     float colsum[2] = {0.f, 0.f};
-    load_pair(sRN, sRX, cp, p.sc[2], yp, p.sy[2], 0);
-    fa::cp_async_commit();
-    int jt = 0, it = 0;
-    for (int q = 0; q < npairs; ++q) {
-      const int stage = q & 1;
-      // the held tiles are free: the previous step ended with a barrier
-      if (it == jt) load_pair(sHN, sHX, bp, p.sb[2], xp, p.sx[2], jt * BT);
-      fa::cp_async_commit();
-      const int next_jt = it + 1 < nt ? jt : jt + 1, next_it = it + 1 < nt ? it + 1 : jt + 1;
-      if (q + 1 < npairs)
-        load_pair(sRN + (stage ^ 1) * BT * LDN, sRX + (stage ^ 1) * BT * LDX, cp, p.sc[2], yp,
-                  p.sy[2], next_it * BT);
-      fa::cp_async_commit();
-      if (q > 0) add_row_sums(sRed, jt == it ? nt - 1 : it - 1, v);  // the previous pair's
-      fa::cp_async_wait<1>();  // all but the newest group: the held tiles, C_i, dy_i are in
-      __syncthreads();
-      const bf16* sC_ = sRN + stage * BT * LDN;
-      const bf16* sY_ = sRX + stage * BT * LDX;
-      const int i0 = it * BT, j0 = jt * BT;
-      const bool diag = it == jt;
-      // on the diagonal tile the warp's rows 16 w .. 16 w + 15 see the columns
-      // i >= 16 w: 8-column tiles from 2 w on
-      const int nlo = diag ? 2 * warp : 0;
-      const float cj[2] = {v.cum[j0 + l0], v.cum[j0 + l0 + 8]};
-      const float dtj[2] = {v.dt[j0 + l0], v.dt[j0 + l0 + 8]};
 
+    for (int it = t; it < nt; ++it) {
+      const int q = rs % RING;
+      hop::mbar_wait(&ring_full[q], (rs / RING) & 1);
+      const bf16* sY = ring_buf + q * BT * HP;
+      const bf16* sC = sBC + (it + 1) * BT * N;
+      // sᵀ = B_t C_itᵀ and dPᵀ / dt_t = x_t dy_itᵀ (rows j, columns i)
+      float sT[32], dPT[32];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int n0 = 4 * half;  // first 8-column tile of the half (32 columns i)
-        float s[4][4], dp[4][4];
+      for (int i = 0; i < 32; ++i) sT[i] = dPT[i] = 0.f;
+      hop::wg_fence();
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+      for (int k = 0; k < N / 16; ++k)
+        hop::wgmma_ss<0>(sT, hop::Sw<N>::desc_k(sBt, k, BT), hop::Sw<N>::desc_k(sC, k, BT), 1);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-        if (n0 + 4 > nlo) {
-          // s = B_j C_i^T and dP / dt_j = x_j dy_i^T, 16 rows j x 32 columns i a warp
+      for (int k = 0; k < HP / 16; ++k)
+        hop::wgmma_ss<0>(dPT, hop::Sw<HP>::desc_k(sX, k, BT), hop::Sw<HP>::desc_k(sY, k, BT),
+                         1);
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::fence_regs(sT);
+      hop::fence_regs(dPT);
+      // P = s L, ds = dP L, dP P; on the diagonal tile the exponent of a pair
+      // i < j is -inf (L = 0, as the plain version's mask), so none is positive
+      const bool diag = it == t;
+      float rp[16];
 #pragma unroll
-          for (int k0 = 0; k0 < N; k0 += 16) {
-            uint32_t af[4];
-            fa::ldsm_x4(af, fa::a_addr(sHN + warp * 16 * LDN, LDN, k0, lane));
+      for (int nb = 0; nb < 8; ++nb) {
+        const float2 ci2 = *reinterpret_cast<const float2*>(vcum + it * BT + 8 * nb + 2 * q4);
 #pragma unroll
-            for (int n = 0; n < 4; n += 2) {
-              if (n0 + n >= nlo) {
-                uint32_t bf[4];
-                fa::ldsm_x4(bf, fa::bt_addr(sC_, LDN, (n0 + n) * 8, k0, lane));
-                fa::mma_bf16(s[n], af, bf[0], bf[1]);
-                fa::mma_bf16(s[n + 1], af, bf[2], bf[3]);
-              }
-            }
-          }
-#pragma unroll
-          for (int k0 = 0; k0 < HP; k0 += 16) {
-            uint32_t af[4];
-            fa::ldsm_x4(af, fa::a_addr(sHX + warp * 16 * LDX, LDX, k0, lane));
-#pragma unroll
-            for (int n = 0; n < 4; n += 2) {
-              if (n0 + n >= nlo) {
-                uint32_t bf[4];
-                fa::ldsm_x4(bf, fa::bt_addr(sY_, LDX, (n0 + n) * 8, k0, lane));
-                fa::mma_bf16(dp[n], af, bf[0], bf[1]);
-                fa::mma_bf16(dp[n + 1], af, bf[2], bf[3]);
-              }
-            }
-          }
-        }
-        // P = s L, ds = dP L and dP P for i >= j; the row sums of dP P over the
-        // warp's 16 rows by shuffles, one value a column into sRed
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          float red[2] = {0.f, 0.f};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int rr = e >> 1;
-            const int li = 8 * (n0 + n) + 2 * t + (e & 1);
-            float P = 0.f, ds = 0.f, seg = 0.f;
-            if (n0 + n >= nlo && (!diag || li >= l0 + 8 * rr)) {
-              const float L = exp2f((v.cum[i0 + li] - cj[rr]) * fa::LOG2E);
-              const float d = dp[n][e] * dtj[rr];
-              P = s[n][e] * L;
-              ds = d * L;
-              seg = d * P;
-            }
-            s[n][e] = P;
-            dp[n][e] = ds;
-            colsum[rr] += seg;
-            red[e & 1] += seg;
-          }
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            red[k] += __shfl_xor_sync(0xffffffffu, red[k], 4);
-            red[k] += __shfl_xor_sync(0xffffffffu, red[k], 8);
-            red[k] += __shfl_xor_sync(0xffffffffu, red[k], 16);
-          }
-          if (gq == 0) {
-            sRed[warp * BT + 8 * (n0 + n) + 2 * t] = red[0];
-            sRed[warp * BT + 8 * (n0 + n) + 2 * t + 1] = red[1];
-          }
-        }
-        // du_j += P^T dy_i and dB_j += ds^T C_i: P and ds rounded to bf16 in the A operand
-#pragma unroll
-        for (int kh = 0; kh < 2; ++kh) {
-          const int kk = 2 * half + kh;  // 16-column step over i
-          if (2 * kk >= nlo) {
-            uint32_t af[4];
-            fa::c_to_a(af, s[2 * kh], s[2 * kh + 1]);
-#pragma unroll
-            for (int n = 0; n < NX; n += 2) {
-              uint32_t bx[4];
-              fa::ldsm_x4_t(bx, fa::b_addr(sY_, LDX, n * 8, kk * 16, lane));
-              fa::mma_bf16(du[n], af, bx[0], bx[1]);
-              fa::mma_bf16(du[n + 1], af, bx[2], bx[3]);
-            }
-            fa::c_to_a(af, dp[2 * kh], dp[2 * kh + 1]);
-#pragma unroll
-            for (int n = 0; n < NN; n += 2) {
-              uint32_t bc[4];
-              fa::ldsm_x4_t(bc, fa::b_addr(sC_, LDN, n * 8, kk * 16, lane));
-              fa::mma_bf16(accN[n], af, bc[0], bc[1]);
-              fa::mma_bf16(accN[n + 1], af, bc[2], bc[3]);
-            }
-          }
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * nb + e, h2 = e >> 1;
+          float arg = ((e & 1) ? ci2.y : ci2.x) - cj[h2];
+          if (diag && 8 * nb + 2 * q4 + (e & 1) < jl0 + 8 * h2) arg = -INFINITY;
+          const float L = exp2f(arg * fa::LOG2E);
+          const float d = dPT[i] * dtj[h2];
+          const float P = sT[i] * L, ds = d * L, seg = d * P;
+          sT[i] = P;
+          dPT[i] = ds;
+          colsum[h2] += seg;
+          if (h2 == 0)
+            rp[2 * nb + (e & 1)] = seg;
+          else
+            rp[2 * nb + (e & 1)] += seg;
         }
       }
-
-      if (it + 1 == nt) {  // column tile jt is complete: the states' terms, then its outputs
-        const float wj[2] = {v.w[j0 + l0], v.w[j0 + l0 + 8]};
-        // q = (w_j B_j) dS, w_j B_j rounded to bf16; du += q; dw = dt_j <q, x_j>
-        float qv[NX][4];
+      const int col = rows_sum16(rp, lane);
+      float* red = sRed + buf * 4 * BT + wq * BT;
+      red[col] = rp[0];
+      red[col + 1] = rp[1];
+      // du_t += Pᵀ dy_it and dB_t += dsᵀ C_it: P and ds rounded to bf16 in the A operand
+      uint32_t pa[4][4], da[4][4];
 #pragma unroll
-        for (int n = 0; n < NX; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) qv[n][e] = 0.f;
-#pragma unroll
-        for (int k0 = 0; k0 < N; k0 += 16) {
-          uint32_t af[4];
-          fa::ldsm_x4(af, fa::a_addr(sHN + warp * 16 * LDN, LDN, k0, lane));
-          scale_rows(af, wj[0], wj[1]);
-#pragma unroll
-          for (int n = 0; n < NX; n += 2) {
-            uint32_t bd[4];
-            fa::ldsm_x4_t(bd, fa::b_addr(sDS, LDX, n * 8, k0, lane));
-            fa::mma_bf16(qv[n], af, bd[0], bd[1]);
-            fa::mma_bf16(qv[n + 1], af, bd[2], bd[3]);
-          }
-        }
-        float dw[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
-#pragma unroll
-        for (int n = 0; n < NX; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int rr = e >> 1;
-            const float xv =
-                __bfloat162float(sHX[(l0 + 8 * rr) * LDX + 8 * n + 2 * t + (e & 1)]);
-            dw[rr] = fmaf(qv[n][e], xv, dw[rr]);
-            du[n][e] += qv[n][e];
-            dd[rr] = fmaf(du[n][e], xv, dd[rr]);
-          }
-        }
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          dw[rr] = fa::quad_sum(dw[rr]) * dtj[rr];
-          dd[rr] = fa::quad_sum(dd[rr]);
-          colsum[rr] = fa::quad_sum(colsum[rr]);
-          const int gj = j0 + l0 + 8 * rr;
-          if (t == 0) {
-            v.dw[gj] = dw[rr];
-            v.ddt[gj] = dd[rr];
-            v.col[gj] = colsum[rr];
-          }
-          if (gj < Q) {
-            bf16* row = dxp + (int64_t)gj * p.sdx[2] + 2 * t;
-#pragma unroll
-            for (int n = 0; n < NX; ++n)
-              *reinterpret_cast<uint32_t*>(row + 8 * n) =
-                  fa::pack_bf16(du[n][2 * rr] * dtj[rr], du[n][2 * rr + 1] * dtj[rr]);
-          }
-          colsum[rr] = 0.f;
-        }
-        // dB_j += (w_j dt_j x_j) dS^T, w_j dt_j x_j rounded to bf16
-#pragma unroll
-        for (int k0 = 0; k0 < HP; k0 += 16) {
-          uint32_t af[4];
-          fa::ldsm_x4(af, fa::a_addr(sHX + warp * 16 * LDX, LDX, k0, lane));
-          scale_rows(af, wj[0] * dtj[0], wj[1] * dtj[1]);
-#pragma unroll
-          for (int n = 0; n < NN; n += 2) {
-            uint32_t bd[4];
-            fa::ldsm_x4(bd, fa::bt_addr(sDS, LDX, n * 8, k0, lane));
-            fa::mma_bf16(accN[n], af, bd[0], bd[1]);
-            fa::mma_bf16(accN[n + 1], af, bd[2], bd[3]);
-          }
-        }
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int gj = j0 + l0 + 8 * rr;
-          if (gj < Q) {
-            float* row = pdb + (int64_t)gj * N + 2 * t;
-#pragma unroll
-            for (int n = 0; n < NN; ++n)
-              *reinterpret_cast<float2*>(row + 8 * n) =
-                  make_float2(accN[n][2 * rr], accN[n][2 * rr + 1]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < NN; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) accN[n][e] = 0.f;
-#pragma unroll
-        for (int n = 0; n < NX; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) du[n][e] = 0.f;
+      for (int kk = 0; kk < 4; ++kk) {
+        fa::c_to_a(pa[kk], sT + 8 * kk, sT + 8 * kk + 4);
+        fa::c_to_a(da[kk], dPT + 8 * kk, dPT + 8 * kk + 4);
       }
-      __syncthreads();  // everyone is done with this stage, the held tiles and sRed
-      jt = next_jt;
-      it = next_it;
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_rs<1>(du, pa[kk], hop::Sw<HP>::desc_mn(sY, kk, BT), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_rs<1>(accN, da[kk], hop::Sw<N>::desc_mn(sC, kk, BT), 1);
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::fence_regs(du);
+      hop::fence_regs(accN);
+      // the streamed tile is free: the one RING further on goes into it; the row
+      // sums of dP P over the tile's columns j, the warps in order
+      hop::bar_sync(bar, 128);
+      if (tid == 0) issue_ring(rs + RING);
+      if (tid < BT && it * BT + tid < Q) {
+        const float* rr = sRed + buf * 4 * BT + tid;
+        vec[t * Q + it * BT + tid] = ((rr[0] + rr[BT]) + rr[2 * BT]) + rr[3 * BT];
+      }
+      ++rs;
+      buf ^= 1;
     }
-    add_row_sums(sRed, nt - 1, v);  // the last pair's: (nt - 1, nt - 1)
-    fa::cp_async_wait<0>();
-    __syncthreads();
-  }
 
-  // ---- walk 2: held row tile it (C_i, dy_i), streamed column tiles jt <= it (B_j, x_j)
-  {
-    load_pair(sRN, sRX, bp, p.sb[2], xp, p.sx[2], 0);
-    fa::cp_async_commit();
-    int it = 0, jt = 0;
-    for (int q = 0; q < npairs; ++q) {
-      const int stage = q & 1;
-      if (jt == 0) load_pair(sHN, sHX, cp, p.sc[2], yp, p.sy[2], it * BT);
-      fa::cp_async_commit();
-      const int next_it = jt < it ? it : it + 1, next_jt = jt < it ? jt + 1 : 0;
-      if (q + 1 < npairs)
-        load_pair(sRN + (stage ^ 1) * BT * LDN, sRX + (stage ^ 1) * BT * LDX, bp, p.sb[2], xp,
-                  p.sx[2], next_jt * BT);
-      fa::cp_async_commit();
-      fa::cp_async_wait<1>();
-      __syncthreads();
-      const bf16* sB_ = sRN + stage * BT * LDN;
-      const bf16* sX_ = sRX + stage * BT * LDX;
-      const int i0 = it * BT, j0 = jt * BT;
-      const bool diag = it == jt;
-      // on the diagonal tile the warp's rows see the columns j < 16 (w + 1)
-      const int ncol = diag ? 2 * (warp + 1) : 8;
-      const float ci[2] = {v.cum[i0 + l0], v.cum[i0 + l0 + 8]};
+    // the states' terms of rows j of tile t: q = (w_j B_t) dS with w_j B_t
+    // rounded to bf16; dw_j = dt_j <q, x_j>; du += q; dx_j, ddt_j's direct
+    // part; and dB_t += (w_j dt_j x_j) dSᵀ, w_j dt_j x_j rounded to bf16, on the
+    // tensor cores while the rest is computed
+    const float cq = vcum[Q - 1];
+    const float wj[2] = {expf(cq - cj[0]), expf(cq - cj[1])};
+    {
+      float qv[NX];
+      {
+        uint32_t ab[N / 16][4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int n0 = 4 * half;
-        if (n0 >= ncol) break;
-        // dP / dt_j = dy_i x_j^T, 16 rows i x 32 columns j a warp
-        float dp[4][4];
+        for (int k = 0; k < N / 16; ++k) tile_a<N>(ab[k], sBt, k, jl0, q4, wj[0], wj[1]);
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+        for (int i = 0; i < NX; ++i) qv[i] = 0.f;
+        hop::wg_fence();
 #pragma unroll
-          for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
+        for (int k = 0; k < N / 16; ++k)
+          hop::wgmma_rs<1>(qv, ab[k], hop::Sw<HP>::desc_mn(sDS, k, N), 1);
+        hop::wg_commit();
+        hop::wg_wait<0>();
+        hop::fence_regs(qv);
+      }
+      // the thread's pairs of x_t (rows jl0 + 8 h2, columns 8 nb + 2 q4): the
+      // A operand of the step k = nb / 2 is pairs (nb, 0), (nb, 1), (nb + 1, 0),
+      // (nb + 1, 1) of even nb
+      uint32_t xq[HP / 8][2];
 #pragma unroll
-        for (int k0 = 0; k0 < HP; k0 += 16) {
-          uint32_t af[4];
-          fa::ldsm_x4(af, fa::a_addr(sHX + warp * 16 * LDX, LDX, k0, lane));
+      for (int nb = 0; nb < HP / 8; ++nb)
 #pragma unroll
-          for (int n = 0; n < 4; n += 2) {
-            if (n0 + n < ncol) {
-              uint32_t bf[4];
-              fa::ldsm_x4(bf, fa::bt_addr(sX_, LDX, (n0 + n) * 8, k0, lane));
-              fa::mma_bf16(dp[n], af, bf[0], bf[1]);
-              fa::mma_bf16(dp[n + 1], af, bf[2], bf[3]);
-            }
-          }
+        for (int h2 = 0; h2 < 2; ++h2)
+          xq[nb][h2] = tile_pair<HP>(sX, jl0 + 8 * h2, 8 * nb + 2 * q4);
+      uint32_t ax[HP / 16][4];
+#pragma unroll
+      for (int k = 0; k < HP / 16; ++k) {
+        const float f0 = wj[0] * dtj[0], f8 = wj[1] * dtj[1];
+        ax[k][0] = scale_pair(xq[2 * k][0], f0, f0);
+        ax[k][1] = scale_pair(xq[2 * k][1], f8, f8);
+        ax[k][2] = scale_pair(xq[2 * k + 1][0], f0, f0);
+        ax[k][3] = scale_pair(xq[2 * k + 1][1], f8, f8);
+      }
+      hop::wg_fence();
+#pragma unroll
+      for (int k = 0; k < HP / 16; ++k)
+        hop::wgmma_rs<0>(accN, ax[k], hop::Sw<HP>::desc_k(sDS, k, N), 1);
+      hop::wg_commit();
+      float dw[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nb = 0; nb < HP / 8; ++nb) {
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const float2 xv =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xq[nb][h2]));
+          const int i = 4 * nb + 2 * h2;
+          dw[h2] = fmaf(qv[i], xv.x, dw[h2]);
+          dw[h2] = fmaf(qv[i + 1], xv.y, dw[h2]);
+          du[i] += qv[i];
+          du[i + 1] += qv[i + 1];
+          dd[h2] = fmaf(du[i], xv.x, dd[h2]);
+          dd[h2] = fmaf(du[i + 1], xv.y, dd[h2]);
         }
-        // ds = dP L for i >= j
+      }
+      bf16* dxp = (bf16*)p.dx + bb * p.sdx[0] + c * p.sdx[1] + h * p.sdx[3];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+      for (int h2 = 0; h2 < 2; ++h2) {
+        dw[h2] = fa::quad_sum(dw[h2]) * dtj[h2];
+        dd[h2] = fa::quad_sum(dd[h2]);
+        const float cs = fa::quad_sum(colsum[h2]);
+        const int gj = gj0 + 8 * h2;
+        if (gj < Q) {
+          bf16* row = dxp + (int64_t)gj * p.sdx[2] + 2 * q4;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int rr = e >> 1;
-            const int lj = 8 * (n0 + n) + 2 * t + (e & 1);
-            float ds = 0.f;
-            if (n0 + n < ncol && (!diag || l0 + 8 * rr >= lj))
-              ds = dp[n][e] * v.dt[j0 + lj] * exp2f((ci[rr] - v.cum[j0 + lj]) * fa::LOG2E);
-            dp[n][e] = ds;
-          }
-        }
-        // dC_i += ds B_j, ds rounded to bf16 in the A operand
-#pragma unroll
-        for (int kh = 0; kh < 2; ++kh) {
-          const int kk = 2 * half + kh;
-          if (2 * kk < ncol) {
-            uint32_t af[4];
-            fa::c_to_a(af, dp[2 * kh], dp[2 * kh + 1]);
-#pragma unroll
-            for (int n = 0; n < NN; n += 2) {
-              uint32_t bq[4];
-              fa::ldsm_x4_t(bq, fa::b_addr(sB_, LDN, n * 8, kk * 16, lane));
-              fa::mma_bf16(accN[n], af, bq[0], bq[1]);
-              fa::mma_bf16(accN[n + 1], af, bq[2], bq[3]);
-            }
+          for (int nb = 0; nb < HP / 8; ++nb)
+            *reinterpret_cast<uint32_t*>(row + 8 * nb) = fa::pack_bf16(
+                du[4 * nb + 2 * h2] * dtj[h2], du[4 * nb + 2 * h2 + 1] * dtj[h2]);
+          if (q4 == 0) {
+            vec[nt * Q + gj] = cs;
+            vec[(nt + 1) * Q + gj] = dw[h2];
+            vec[(nt + 2) * Q + gj] = dd[h2];
           }
         }
       }
-      if (diag) {  // dC_i is complete
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int gi = i0 + l0 + 8 * rr;
-          if (gi < Q) {
-            float* row = pdc + (int64_t)gi * N + 2 * t;
-#pragma unroll
-            for (int n = 0; n < NN; ++n)
-              *reinterpret_cast<float2*>(row + 8 * n) =
-                  make_float2(accN[n][2 * rr], accN[n][2 * rr + 1]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < NN; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) accN[n][e] = 0.f;
-      }
-      __syncthreads();  // everyone is done with this stage and the held tiles
-      it = next_it;
-      jt = next_jt;
+      hop::wg_wait<0>();
+      hop::fence_regs(accN);
     }
-    fa::cp_async_wait<0>();
-    __syncthreads();
+    ++hs;
   }
-  bwd_final(p, dcp, ddtp, p.pda + blk, a, Q, QP, v);
+  combine(p.pdb);
+
+  // ---- walk 2: row tile t held (dy_t), column tiles jt <= t streamed (x_jt
+  // from the ring, B_jt from the block's tiles): dC_t
+  for (int r = w; r < R; r += 2) {
+    const int h = h0 + r;
+    const float a = p.a[h * p.sa];
+    hop::bar_sync(bar, 128);
+    if (tid == 0 && hs > 0) issue_held(hs + 1);
+    const float* vdt = vecs + 2 * (hs - nh) * QMAX;  // as walk 1 left them
+    const float* vcum = vdt + QMAX;
+    const int hsl = hs & 1;
+    hop::mbar_wait(&held_full[hsl], (hs >> 1) & 1);
+    const bf16* sY = held_buf + hsl * BT * HP;
+    const float ci[2] = {vcum[gj0], vcum[gj0 + 8]};
+    for (int jt = 0; jt <= t; ++jt) {
+      const int q = rs % RING;
+      hop::mbar_wait(&ring_full[q], (rs / RING) & 1);
+      const bf16* sXj = ring_buf + q * BT * HP;
+      // dP / dt_j = dy_t x_jtᵀ (rows i, columns j)
+      float dP[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dP[i] = 0.f;
+      hop::wg_fence();
+#pragma unroll
+      for (int k = 0; k < HP / 16; ++k)
+        hop::wgmma_ss<0>(dP, hop::Sw<HP>::desc_k(sY, k, BT), hop::Sw<HP>::desc_k(sXj, k, BT),
+                         1);
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::fence_regs(dP);
+      // ds = dP dt_j L, the exponent of a pair i < j -inf as in walk 1
+      const bool diag = jt == t;
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const float2 cj2 = *reinterpret_cast<const float2*>(vcum + jt * BT + 8 * nb + 2 * q4);
+        const float2 dt2 = *reinterpret_cast<const float2*>(vdt + jt * BT + 8 * nb + 2 * q4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * nb + e, h2 = e >> 1;
+          float arg = ci[h2] - ((e & 1) ? cj2.y : cj2.x);
+          if (diag && jl0 + 8 * h2 < 8 * nb + 2 * q4 + (e & 1)) arg = -INFINITY;
+          dP[i] = dP[i] * ((e & 1) ? dt2.y : dt2.x) * exp2f(arg * fa::LOG2E);
+        }
+      }
+      // dC_t += ds B_jt, ds rounded to bf16 in the A operand
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fa::c_to_a(da[kk], dP + 8 * kk, dP + 8 * kk + 4);
+      const bf16* sB = sBC + jt * BT * N;
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_rs<1>(accN, da[kk], hop::Sw<N>::desc_mn(sB, kk, BT), 1);
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::fence_regs(accN);
+      hop::bar_sync(bar, 128);
+      if (tid == 0) issue_ring(rs + RING);
+      ++rs;
+    }
+    ++hs;
+  }
+  combine(p.pdc);
 }
 
 template <int HP, int N>
-struct TcLaunchB {
-  static int run(const BwdArgs& args, int Bt, int nc, int H, cudaStream_t stream) {
-    using C = TcB<HP, N>;
-    // 16-byte cp.async of x, dy, B and C rows
-    const int64_t* strides[4] = {args.sx, args.sy, args.sb, args.sc};
-    const void* bases[4] = {args.x, args.dy, args.b, args.c};
-    for (int i = 0; i < 4; ++i) {
-      if (!fa::aligned16(bases[i])) return (int)cudaErrorInvalidValue;
-      for (int d = 0; d < 4; ++d)
-        if (strides[i][d] % 8) return (int)cudaErrorInvalidValue;
-    }
-    auto kernel = ssd_chunk_bwd_tc_kernel<HP, N>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)C::SMEM);
+struct WgLaunch {
+  static int run(const WgMaps& maps, const WgArgs& args, int blocks, cudaStream_t stream) {
+    auto kernel = ssd_chunk_bwd_wg_kernel<HP, N>;
+    const size_t smem = Wg<HP, N>::smem(args.nt);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3(nc, H, Bt), C::NTH, C::SMEM, stream>>>(args);
+    kernel<<<blocks, Wg<HP, N>::NTH, smem, stream>>>(maps, args);
     return (int)cudaGetLastError();
   }
 };
 
+// out: blocks of the grid, resident blocks an SM, threads a block, dynamic
+// shared memory bytes.
 template <int HP, int N>
-struct TcGridB {
-  static int run(int Bt, int nc, int H, int* out) {
-    using C = TcB<HP, N>;
-    auto kernel = ssd_chunk_bwd_tc_kernel<HP, N>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)C::SMEM);
+struct WgGrid {
+  static int run(int blocks, int nt, int* out) {
+    auto kernel = ssd_chunk_bwd_wg_kernel<HP, N>;
+    const size_t smem = Wg<HP, N>::smem(nt);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, C::NTH, C::SMEM);
-    out[0] = Bt * nc * H;
-    out[2] = C::NTH;
-    out[3] = (int)C::SMEM;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, Wg<HP, N>::NTH, smem);
+    out[0] = blocks;
+    out[2] = Wg<HP, N>::NTH;
+    out[3] = (int)smem;
     return (int)err;
   }
 };
@@ -1499,6 +1665,149 @@ __global__ void bwd_da_kernel(const float* __restrict__ pda, float* da, int64_t 
     for (int64_t k = 0; k < bcs; ++k) s += pda[k * H + h];
     da[h] = s;
   }
+}
+
+// The bf16 route's last step for one head, one warp a (batch, chunk, head),
+// from the main kernel's vectors (`pvec`, each Q long: the row sums of dP P
+// of row tiles 0 .. nt - 1, then the column sums, dw and ddt's direct part):
+// dcum_k = dcum_in_k + sum_{t <= k / 64} row_{t,k} - col_k - dw_k (+ sum_j dw_j
+// at k = Q - 1), ddt_k = direct_k + a sum_{m >= k} dcum_m and the head's share
+// of da, sum_k dcum_k cs_k: bwd_prologue's and bwd_final's scans, in their
+// orders.
+__global__ void bwd_final_kernel(BwdArgs p, const float* __restrict__ pvec, int64_t heads, int nc,
+                                 int H, int nt) {
+  constexpr int EM = QMAX / 32;
+  const int64_t bch = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (bch >= heads) return;
+  const int lane = threadIdx.x & 31;
+  const int h = (int)(bch % H), c = (int)(bch / H % nc);
+  const int64_t bb = bch / H / nc;
+  const int Q = p.Q, E = nt * BT / 32;
+  const float* dtp = p.dt + bb * p.sd[0] + c * p.sd[1] + h * p.sd[3];
+  const float* dcp = p.dcum + bb * p.sk[0] + c * p.sk[1] + h * p.sk[3];
+  float* ddtp = p.ddt + bb * p.sdd[0] + c * p.sdd[1] + h * p.sdd[3];
+  const float* vec = pvec + bch * (nt + 3) * Q;
+  const float a = p.a[h * p.sa];
+  float cs[EM], dc[EM];
+  float tot = 0.f, tw = 0.f;
+#pragma unroll
+  for (int e = 0; e < EM; ++e) {
+    const int k = lane * E + e;
+    cs[e] = e < E && k < Q ? dtp[(int64_t)k * p.sd[2]] : 0.f;
+    tot += cs[e];
+    if (e < E && k < Q) tw += vec[(nt + 1) * Q + k];
+  }
+  float incl = tot;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, s);
+    if (lane >= s) incl += o;
+  }
+  float run = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) run = 0.f;
+#pragma unroll
+  for (int e = 0; e < EM; ++e) {
+    run += cs[e];
+    cs[e] = run;
+  }
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1) tw += __shfl_xor_sync(0xffffffffu, tw, s);
+  tot = 0.f;
+#pragma unroll
+  for (int e = 0; e < EM; ++e) {
+    const int k = lane * E + e;
+    float d = 0.f;
+    if (e < E && k < Q) {
+      float row = 0.f;
+      for (int t = 0; t <= k / BT; ++t) row += vec[t * Q + k];
+      d = dcp[(int64_t)k * p.sk[2]] + row - vec[nt * Q + k] - vec[(nt + 1) * Q + k];
+      if (k == Q - 1) d += tw;
+    }
+    dc[e] = d;
+    tot += d;
+  }
+  incl = tot;  // suffix sums of the lanes' totals
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const float o = __shfl_down_sync(0xffffffffu, incl, s);
+    if (lane + s < 32) incl += o;
+  }
+  run = __shfl_down_sync(0xffffffffu, incl, 1);
+  if (lane == 31) run = 0.f;
+  float da = 0.f;
+#pragma unroll
+  for (int e = EM - 1; e >= 0; --e) {
+    if (e >= E) continue;
+    const int k = lane * E + e;
+    run += dc[e];
+    da = fmaf(dc[e], cs[e], da);
+    if (k < Q) ddtp[(int64_t)k * p.sdd[2]] = vec[(nt + 2) * Q + k] + a * run;
+  }
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1) da += __shfl_xor_sync(0xffffffffu, da, s);
+  if (lane == 0) p.pda[bch] = da;
+}
+
+// cuTensorMapEncodeTiled of libcuda, reached through the runtime's entry-point
+// query (the library links nothing new).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                         &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// The TMA map of a bf16 input (batch, chunk, row, head or group, D) with
+// strides `s` (elements: batch, chunk, row, head; D contiguous): dim 0 the D
+// columns, then the other four by stride, a dim of extent 1 last; boxes of
+// min(D, 64) columns x 64 rows, swizzled (one sub-tile of a canonical tile;
+// rows past Q read as zeros).
+// `ord[k]` gets which of (row, head, chunk, batch) dim k + 1 is.
+static int make_map(CUtensorMap* map, int* ord, const void* base, const int64_t* s, int D, int Q,
+                    int heads, int nc, int Bt) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const int64_t ext[4] = {Q, heads, nc, Bt};
+  const int64_t str[4] = {s[2], s[3], s[1], s[0]};
+  int64_t key[4], big = 16;
+  for (int i = 0; i < 4; ++i) {
+    key[i] = ext[i] == 1 ? INT64_MAX : str[i];
+    if (ext[i] > 1 && 2 * str[i] > big) big = 2 * str[i];
+  }
+  int idx[4] = {0, 1, 2, 3};
+  for (int i = 1; i < 4; ++i)
+    for (int k = i; k > 0 && key[idx[k]] < key[idx[k - 1]]; --k) {
+      const int tmp = idx[k];
+      idx[k] = idx[k - 1];
+      idx[k - 1] = tmp;
+    }
+  cuuint64_t gdim[5] = {(cuuint64_t)D, 1, 1, 1, 1}, gstr[4];
+  const int C = D < 64 ? D : 64;
+  cuuint32_t box[5] = {(cuuint32_t)C, 1, 1, 1, 1}, es[5] = {1, 1, 1, 1, 1};
+  for (int k = 0; k < 4; ++k) {
+    const int i = idx[k];
+    gdim[k + 1] = (cuuint64_t)ext[i];
+    gstr[k] = (cuuint64_t)(ext[i] == 1 ? big : 2 * str[i]);
+    box[k + 1] = i == 0 ? BT : 1;
+    ord[k] = i;
+  }
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), gdim,
+                         gstr, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         C == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : C == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // F<hp, N>::run(a...) for the head dims and state sizes the kernels are
@@ -1567,17 +1876,23 @@ extern "C" int ssd_chunk_grid(int Bt, int nc, int H, int hp, int N, int* out) {
 // The gradient of ssd_chunk.  Inputs as ssd_chunk's, and dy like y, dstates
 // (Bt,nc,H,N,hp) fp32 with any strides, dcum (Bt,nc,Q,H) fp32; outputs dx like x,
 // ddt (Bt,nc,Q,H) fp32, db and dc (Bt,nc,Q,G,N) like b, contiguous, da (H,)
-// fp32; scratch pdb, pdc (Bt·nc·H, Q, N) and pda (Bt·nc·H) fp32.  `strides`
-// holds 38 (see ssd::BwdArgs, in that order, then a's).  Three device kernels:
-// the heads', the sum over each group's heads, the sum of da.  Returns
-// cudaGetLastError() after each launch.
+// fp32.  `strides` holds 38 (see ssd::BwdArgs, in that order, then a's).
+// fp32 scratch: pda (Bt·nc·H); for bf16, pdb and pdc (Bt·nc·G·S, Q, N), a
+// partial for each slice of R heads (S = H / G / R), and pvec (Bt·nc·H,
+// ceil(Q / 64) + 3, Q); for fp32, pdb and pdc (Bt·nc·H, Q, N) and no pvec.
+// Device kernels: bf16, ssd_chunk_bwd_wg_kernel, bwd_reduce_kernel over the
+// slices, bwd_final_kernel; fp32, ssd_chunk_bwd_kernel, bwd_reduce_kernel
+// over the heads; both then bwd_da_kernel.  Returns cudaGetLastError() after
+// each launch.
 extern "C" int ssd_chunk_bwd(const void* x, const void* dt, const void* b, const void* c,
                              const void* a, const void* dy, const void* dstates,
                              const void* dcum, void* dx, void* ddt, void* db, void* dc,
-                             void* da, void* pdb, void* pdc, void* pda,
+                             void* da, void* pdb, void* pdc, void* pvec, void* pda,
                              const long long* strides, int Bt, int nc, int Q, int H, int G,
-                             int hp, int N, int is_bf16, void* stream) {
+                             int hp, int N, int R, int is_bf16, void* stream) {
   if (Q < 1 || Q > ssd::QMAX || G < 1 || H % G) return (int)cudaErrorInvalidValue;
+  if (is_bf16 && (R < 1 || R > 2 * ssd::Wg<16, 16>::MAXH || (H / G) % R))
+    return (int)cudaErrorInvalidValue;
   if (H == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t bcs = (int64_t)Bt * nc;
@@ -1605,29 +1920,55 @@ extern "C" int ssd_chunk_bwd(const void* x, const void* dt, const void* b, const
     args.sa = strides[k];
     args.Q = Q;
     args.rep = H / G;
-    // by type, not a fallback: bf16 only ever reaches the tensor-core kernel
-    int err = is_bf16 ? ssd::switch_dims<ssd::TcLaunchB>(hp, N, args, Bt, nc, H, s)
-                      : ssd::switch_dims<ssd::FmaB>(hp, N, args, Bt, nc, H, s);
-    if (err != 0) return err;
     const int64_t rows = bcs * Q * G;
     const dim3 grid((unsigned)((rows * (N / 4) + 255) / 256), 2);
-    if (is_bf16)
+    int err;
+    // by type, not a fallback: bf16 only ever reaches the wgmma kernel
+    if (is_bf16) {
+      ssd::WgArgs wa;
+      wa.p = args;
+      wa.pvec = (float*)pvec;
+      wa.nc = nc;
+      wa.G = G;
+      wa.R = R;
+      wa.S = H / G / R;
+      wa.nt = (Q + ssd::BT - 1) / ssd::BT;
+      ssd::WgMaps maps;
+      if ((err = ssd::make_map(&maps.x, wa.ord[0], x, args.sx, hp, Q, H, nc, Bt)) ||
+          (err = ssd::make_map(&maps.dy, wa.ord[1], dy, args.sy, hp, Q, H, nc, Bt)) ||
+          (err = ssd::make_map(&maps.b, wa.ord[2], b, args.sb, N, Q, G, nc, Bt)) ||
+          (err = ssd::make_map(&maps.c, wa.ord[3], c, args.sc, N, Q, G, nc, Bt)))
+        return err;
+      const int blocks = (int)(bcs * G * wa.S * wa.nt);
+      err = ssd::switch_dims<ssd::WgLaunch>(hp, N, maps, wa, blocks, s);
+      if (err != 0) return err;
       ssd::bwd_reduce_kernel<ssd::bf16><<<grid, 256, 0, s>>>(
-          (const float*)pdb, (const float*)pdc, (ssd::bf16*)db, (ssd::bf16*)dc, rows, Q, G, N, H,
-          H / G);
-    else
+          (const float*)pdb, (const float*)pdc, (ssd::bf16*)db, (ssd::bf16*)dc, rows, Q, G, N,
+          G * wa.S, wa.S);
+      if ((err = (int)cudaGetLastError())) return err;
+      const int64_t heads = bcs * H;
+      ssd::bwd_final_kernel<<<(unsigned)((heads * 32 + 127) / 128), 128, 0, s>>>(
+          args, (const float*)pvec, heads, nc, H, wa.nt);
+    } else {
+      err = ssd::switch_dims<ssd::FmaB>(hp, N, args, Bt, nc, H, s);
+      if (err != 0) return err;
       ssd::bwd_reduce_kernel<float><<<grid, 256, 0, s>>>((const float*)pdb, (const float*)pdc,
                                                         (float*)db, (float*)dc, rows, Q, G, N,
                                                         H, H / G);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
+    }
+    if ((err = (int)cudaGetLastError())) return err;
   }
   ssd::bwd_da_kernel<<<1, 256, 0, s>>>((const float*)pda, (float*)da, bcs, H);
   return (int)cudaGetLastError();
 }
 
-// The bf16 backward kernel's launch geometry for these dims (out[4], see
-// ssd::TcGridB).
-extern "C" int ssd_chunk_bwd_grid(int Bt, int nc, int H, int hp, int N, int* out) {
-  return ssd::switch_dims<ssd::TcGridB>(hp, N, Bt, nc, H, out);
+// The bf16 backward's main kernel's launch geometry for these dims and R
+// heads a slice (out[4], see ssd::WgGrid).
+extern "C" int ssd_chunk_bwd_grid(int Bt, int nc, int Q, int H, int G, int hp, int N, int R,
+                                  int* out) {
+  if (Q < 1 || Q > ssd::QMAX || G < 1 || H % G || R < 1 || R > 2 * ssd::Wg<16, 16>::MAXH ||
+      (H / G) % R)
+    return (int)cudaErrorInvalidValue;
+  const int nt = (Q + ssd::BT - 1) / ssd::BT;
+  return ssd::switch_dims<ssd::WgGrid>(hp, N, Bt * nc * G * (H / G / R) * nt, nt, out);
 }

@@ -17,9 +17,10 @@ einsums); the port's backward is a kernel of its own, entry point
 ``ssd_chunk_bwd`` in the same source: the gradient of the same function,
 recomputed from the saved inputs x, dt, b, c, a (nothing the forward wrote is
 kept), with ``ssd_chunk_bwd_plain`` its arithmetic in PyTorch.  dB and dC sum
-over the heads of a group, and da over batch and chunks, in a fixed order
-(per-head partials, then a sum in head order), so the gradients are the same
-from run to run.
+over the heads of a group, and da over batch and chunks, in a fixed order and
+without atomics (bf16: inside a block over a slice of heads, then over the
+slices; fp32: per-head partials, then a sum in head order), so the gradients
+are the same from run to run.
 """
 
 from __future__ import annotations
@@ -36,9 +37,15 @@ HEAD_DIMS = (16, 32, 64)
 STATE_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 256
 
+#: rows of a tile of the backward kernels
+TILE = 64
+#: at most this many heads of a group share one block of the bf16 backward,
+#: which sums their dB and dC before anything reaches device memory
+SLICE_HEADS = 16
+
 _VP = ctypes.c_void_p
 _ARGTYPES = [_VP] * 9 + [ctypes.c_int] * 8
-_BWD_ARGTYPES = [_VP] * 17 + [ctypes.c_int] * 8
+_BWD_ARGTYPES = [_VP] * 18 + [ctypes.c_int] * 9
 
 #: the plain version: the kernel's arithmetic, stated in PyTorch
 ssd_chunk_plain = ssd_intra
@@ -187,13 +194,47 @@ def ssd_chunk_bwd_plain(x, dt, b, c, a, dy, dstates, dcum):
             dc.to(c.dtype).contiguous(), da.to(a.dtype))
 
 
+def ssd_bwd_geometry(Bt, nc, Q, H, G, hp, N, bf16: bool = True) -> dict:
+    """The bf16 backward's launch geometry and the scratch its wrapper
+    allocates (fp32 elements by name; ``bf16=False``: the fp32 kernel's).
+
+    bf16: the heads of each group split into ``slices`` of ``slice_heads`` R
+    consecutive heads (the largest divisor of H / G up to ``SLICE_HEADS``),
+    one block per (batch, chunk, group, slice, row tile of ``TILE`` rows):
+    ``pdb`` and ``pdc`` hold one (Q, N) partial a slice, ``pvec`` a head's
+    ``tiles + 3`` vectors of Q, ``pda`` a head's share of da.  fp32: one
+    block per (batch, chunk, head) and a partial a head."""
+    if G < 1 or H % G:
+        raise ValueError(f"ssd_chunk_bwd: {H} heads do not split into {G} groups")
+    if hp not in HEAD_DIMS or N not in STATE_DIMS or not 1 <= Q <= MAX_CHUNK:
+        raise ValueError(f"ssd_chunk_bwd: needs hp in {HEAD_DIMS}, N in {STATE_DIMS}, "
+                         f"1 <= Q <= {MAX_CHUNK}; got hp={hp}, N={N}, Q={Q}")
+    rep = H // G
+    tiles = -(-Q // TILE)
+    if bf16:
+        R = max(r for r in range(1, min(rep, SLICE_HEADS) + 1) if rep % r == 0)
+        parts = Bt * nc * G * (rep // R)
+        scratch = {"pdb": parts * Q * N, "pdc": parts * Q * N,
+                   "pvec": Bt * nc * H * (tiles + 3) * Q, "pda": Bt * nc * H}
+    else:
+        R = 1
+        scratch = {"pdb": Bt * nc * H * Q * N, "pdc": Bt * nc * H * Q * N, "pvec": 0,
+                   "pda": Bt * nc * H}
+    slices = [tuple(range(g * rep + s * R, g * rep + (s + 1) * R))
+              for g in range(G) for s in range(rep // R)]
+    return {"slice_heads": R, "slices": slices, "tiles": tiles,
+            "blocks": Bt * nc * len(slices) * (tiles if bf16 else 1),
+            "scratch": scratch, "scratch_bytes": 4 * sum(scratch.values())}
+
+
 def ssd_chunk_bwd_cuda(x, dt, b, c, a, dy, dstates, dcum):
     """Launch the backward kernel; returns ``(dx, ddt, db, dc, da)``: dx in
     x's dtype, ddt and da fp32, db and dc new contiguous tensors in b's
     dtype.  ``None`` for an output gradient passes zeros.  dy is read like
     x (its rows copied into place first when they are not aligned so),
-    dstates and dcum through any strides.  The per-head partials of dB, dC
-    and da that the fixed-order sums read are allocated here."""
+    dstates and dcum through any strides.  The partials that the fixed-order
+    sums read (``ssd_bwd_geometry``: bf16, dB and dC a slice of heads) are
+    allocated here, in one buffer."""
     what = "ssd_chunk_bwd kernel"
     dy, dstates, dcum = _grads_in(x, b, dy, dstates, dcum)
     Bt, nc, Q, H, hp = x.shape
@@ -215,9 +256,13 @@ def ssd_chunk_bwd_cuda(x, dt, b, c, a, dy, dstates, dcum):
     db = torch.empty((Bt, nc, Q, G, N), dtype=b.dtype, device=x.device)
     dc = torch.empty_like(db)
     da = torch.empty((H,), dtype=torch.float32, device=x.device)
-    pdb = torch.empty((Bt * nc * H, Q, N), dtype=torch.float32, device=x.device)
-    pdc = torch.empty_like(pdb)
-    pda = torch.empty((Bt * nc * H,), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    geo = ssd_bwd_geometry(Bt, nc, Q, H, G, hp, N, bf16)
+    scratch = torch.empty(sum(geo["scratch"].values()), dtype=torch.float32, device=x.device)
+    parts, at = {}, 0
+    for name, n in geo["scratch"].items():
+        parts[name] = scratch.data_ptr() + 4 * at if n else None
+        at += n
     strides = (_strides(x, 4) + _strides(dt, 4) + _strides(b, 4) + _strides(c, 4)
                + _strides(dy, 4) + list(dstates.stride()) + _strides(dcum, 4)
                + _strides(dx, 4) + _strides(ddt, 4) + [a.stride(0)])
@@ -225,8 +270,8 @@ def ssd_chunk_bwd_cuda(x, dt, b, c, a, dy, dstates, dcum):
     launch("ssd_chunk_bwd", _BWD_ARGTYPES, x.device, x.data_ptr(), dt.data_ptr(),
            b.data_ptr(), c.data_ptr(), a.data_ptr(), dy.data_ptr(), dstates.data_ptr(),
            dcum.data_ptr(), dx.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
-           da.data_ptr(), pdb.data_ptr(), pdc.data_ptr(), pda.data_ptr(), ctypes.addressof(arr),
-           Bt, nc, Q, H, G, hp, N, int(x.dtype == torch.bfloat16))
+           da.data_ptr(), parts["pdb"], parts["pdc"], parts["pvec"], parts["pda"],
+           ctypes.addressof(arr), Bt, nc, Q, H, G, hp, N, geo["slice_heads"], int(bf16))
     return dx, ddt, db, dc, da
 
 

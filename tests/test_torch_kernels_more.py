@@ -27,7 +27,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.kernels.ssd_chunk import ssd_chunk as pallas_ssd_chunk
 from repro.optim import optimizers as ref_optim
-from repro_torch.configs import smoke_config
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.convert import numpy_to_tensor, tree_leaves
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import fused_adam as fad
@@ -642,6 +642,53 @@ def test_ssd_bwd_tensor_core_rounding_fits_the_bf16_tolerance(case):
         g, w = f32(got.to(b.dtype)).reshape(-1, N), f32(want).reshape(-1, N)
         err, norm = np.linalg.norm(g - w, axis=-1), np.linalg.norm(w, axis=-1)
         assert np.all(err <= ROW_RTOL * np.maximum(norm, np.median(norm))), (name, err.max())
+
+
+# -- the bf16 backward's launch geometry -------------------------------------------------
+
+
+@pytest.mark.parametrize("H,G", [(64, 1), (8, 2), (6, 3), (48, 2), (17, 1), (96, 4), (4, 4)])
+def test_ssd_bwd_slices_cover_every_head_once_in_order(H, G):
+    """The slices of ``ssd_bwd_geometry`` (the bf16 backward sums dB and dC
+    over each in its block) are runs of consecutive heads of one group, at
+    most ``SLICE_HEADS`` long, all of one length R that divides the group,
+    and together every head exactly once, in order; one block a slice and
+    row tile."""
+    Q = 96
+    geo = sc.ssd_bwd_geometry(2, 3, Q, H, G, 64, 128)
+    R, rep = geo["slice_heads"], H // G
+    assert [h for s in geo["slices"] for h in s] == list(range(H))
+    assert all(len(s) == R and len({h // rep for h in s}) == 1 for s in geo["slices"])
+    assert rep % R == 0 and R <= sc.SLICE_HEADS
+    assert R == max(r for r in range(1, sc.SLICE_HEADS + 1) if rep % r == 0)
+    assert geo["tiles"] == 2 and geo["blocks"] == 2 * 3 * len(geo["slices"]) * 2
+    assert geo["scratch"]["pdb"] == geo["scratch"]["pdc"] == 2 * 3 * (H // R) * Q * 128
+
+
+def test_ssd_bwd_scratch_at_mamba2_is_an_eighth_of_the_per_head_partials():
+    """At mamba2-1.3b's training shape (batch 4 x 4096, chunk 256, 64 heads
+    of 64, one group, d_state 128) the bf16 backward's scratch is at most an
+    eighth of the 1.07 GB of per-head fp32 partials (which the fp32 kernel
+    keeps: one (Q, N) partial of dB and of dC a head)."""
+    cfg = get_config("mamba2-1.3b")
+    s = cfg.ssm
+    shape = (4, 4096 // s.chunk, s.chunk, cfg.ssm_heads, s.n_groups, s.headdim, s.d_state)
+    assert shape == (4, 16, 256, 64, 1, 64, 128)
+    per_head = 2 * 4 * 16 * 64 * 256 * 128 * 4
+    fp32 = sc.ssd_bwd_geometry(*shape, bf16=False)
+    assert fp32["scratch_bytes"] == per_head + 4 * 16 * 64 * 4
+    geo = sc.ssd_bwd_geometry(*shape)
+    assert geo["slice_heads"] == 16 and geo["blocks"] == 4 * 16 * 4 * 4
+    assert geo["scratch_bytes"] <= per_head / 8
+
+
+@pytest.mark.parametrize("Q,H,G,hp,N", [(64, 8, 3, 64, 128), (64, 8, 0, 64, 128),
+                                        (64, 8, 2, 128, 128), (64, 8, 2, 48, 128),
+                                        (64, 8, 2, 64, 256), (64, 8, 2, 64, 96),
+                                        (0, 8, 2, 64, 128), (257, 8, 2, 64, 128)])
+def test_ssd_bwd_geometry_raises_outside_the_instantiations(Q, H, G, hp, N):
+    with pytest.raises(ValueError):
+        sc.ssd_bwd_geometry(1, 1, Q, H, G, hp, N)
 
 
 # -- dispatch, counters, sources ----------------------------------------------------------
