@@ -10,7 +10,8 @@ Phases, each printing one JSON line (or a few):
   env         versions, device name, power limit
   build       compiles the CUDA kernels from src/repro_torch/kernels/csrc;
               no spills in the tensor-core kernels, HGMMA in the SASS of
-              each instantiation of the bf16 SSD backward
+              each instantiation of the bf16 flash dq, flash dk/dv and SSD
+              backward kernels
   kernels     each of the six kernels and the rmsnorm and SSD chunk
               backwards against its plain PyTorch version on the card: fp32
               at small shapes, bf16
@@ -247,6 +248,12 @@ SERVE_MLA_LAYERS = 31
 WG_PATH = ("wgmma.mma_async m64nNk16 bf16 x bf16 -> fp32 (tensor cores; the score tiles "
            "as register A operands), TMA tile copies into mbarrier rings, issued by a "
            "thread of each of the block's two warpgroups")
+#: the flash backward's bf16 kernels
+FLASH_WG_PATH = ("wgmma.mma_async m64nNk16 bf16 x bf16 -> fp32 (tensor cores) in two "
+                 "warpgroups: a warpgroup's rows of the score tile as the register A operand "
+                 "(dq at hd <= 64, dk/dv at hd <= 128), else the output's columns split over "
+                 "the warpgroups and the score tile through shared memory; TMA copies (one box "
+                 "a 64-row tile) into an mbarrier ring, issued by thread 0")
 TC_PATH = ("mma.sync.aligned.m16n8k16 bf16 x bf16 -> fp32 (tensor cores), ldmatrix, "
            "cp.async two-stage ring")
 KERNELS = {
@@ -257,11 +264,12 @@ KERNELS = {
     "flash_dq": {"route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_dq.cu",
                  "replaces": "src/repro/kernels/flash_attention.py:209",
-                 "bf16_path": "flash_dq_tc_kernel: " + TC_PATH},
+                 "bf16_path": "flash_dq_wg_kernel: " + FLASH_WG_PATH},
     "flash_dkv": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/flash_dkv.cu",
                   "replaces": "src/repro/kernels/flash_attention.py:227",
-                  "bf16_path": "flash_dkv_tc_kernel: " + TC_PATH},
+                  "bf16_path": "flash_dkv_wg_kernel: " + FLASH_WG_PATH +
+                                   "; the GQA group summed in the block's registers"},
     "rmsnorm": {"route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "replaces": "src/repro/kernels/rmsnorm.py:28"},
@@ -289,8 +297,9 @@ FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 #: bf16, device kernel of fp32, instantiations in the library) — one per head
 #: dim for flash, one per (hp, N) for the SSD chunk and its backward
 TENSOR_CORE = {
-    **{name: (f"fa::{name}_tc_kernel<", f"fa::{name}_kernel<", len(fa.HEAD_DIMS))
-       for name in FLASH},
+    "flash_fwd": ("fa::flash_fwd_tc_kernel<", "fa::flash_fwd_kernel<", len(fa.HEAD_DIMS)),
+    **{name: (f"fa::{name}_wg_kernel<", f"fa::{name}_kernel<", len(fa.HEAD_DIMS))
+       for name in ("flash_dq", "flash_dkv")},
     "ssd_chunk": ("ssd::ssd_chunk_tc_kernel<", "ssd::ssd_chunk_kernel<",
                   len(sc.HEAD_DIMS) * len(sc.STATE_DIMS)),
     "ssd_chunk_bwd": ("ssd::ssd_chunk_bwd_wg_kernel<", "ssd::ssd_chunk_bwd_kernel<",
@@ -385,23 +394,30 @@ def phase_build(widths) -> None:
         for prefix, count in prefixes.items():
             expect_no_spills(prefix, [k for k in info["ptxas"][name]
                                       if k["kernel"].startswith(prefix)], count)
-    emit("build_sass", ssd_chunk_bwd_hgmma=wgmma_instructions(info["paths"]["ssd_chunk"]))
+    emit("build_sass", **{f"{name}_hgmma": wgmma_instructions(info["paths"], name)
+                          for name in WGMMA})
 
 
-def wgmma_instructions(library) -> dict[str, int]:
-    """The bf16 SSD backward runs its products on wgmma: ``HGMMA``
-    instructions in the SASS of each instantiation of its kernel
-    (``cuobjdump -sass`` of the built library); raises where one has none."""
+#: the entry points whose bf16 kernel runs its products on wgmma
+WGMMA = ("flash_dq", "flash_dkv", "ssd_chunk_bwd")
+
+
+def wgmma_instructions(paths, name) -> dict[str, int]:
+    """``name``'s bf16 kernel runs its products on wgmma: ``HGMMA``
+    instructions in the SASS of each instantiation of it (``cuobjdump -sass``
+    of the built library); raises where one has none."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
-                          check=True).stdout
+    sass = subprocess.run([cuobjdump, "-sass", str(paths[build.ENTRY_POINTS[name]])],
+                          capture_output=True, text=True, check=True).stdout
+    kernel, _, count = TENSOR_CORE[name]
+    bare = kernel.split("::")[1].rstrip("<")
     counts = {}
     for part in sass.split("Function : ")[1:]:
-        name = part.split("\n", 1)[0].strip()
-        if "ssd_chunk_bwd_wg_kernel" in name:
-            counts[name] = part.count("HGMMA")
-    if len(counts) != TENSOR_CORE["ssd_chunk_bwd"][2] or not all(counts.values()):
-        raise AssertionError(f"ssd_chunk_bwd_wg_kernel without HGMMA in its SASS: {counts}")
+        fn = part.split("\n", 1)[0].strip()
+        if bare in fn:
+            counts[fn] = part.count("HGMMA")
+    if len(counts) != count or not all(counts.values()):
+        raise AssertionError(f"{bare} without HGMMA in its SASS: {counts}")
     return counts
 
 
@@ -502,19 +518,29 @@ def check_case(case, dtype, tol_fwd, tol_grad, seed, library=False, faults=False
     if faults:
         errs["planted_faults"] = planted_faults(case, q, k, v, do, o_p, lse_p, delta, dq_p,
                                                 dk_p, dv_p)
+        # the backward kernels sum in a fixed order: a second call is the first bit for bit
+        dq2 = fa.flash_dq_cuda(q, k, v, do, lse_p, delta, causal, window)
+        dk2, dv2 = fa.flash_dkv_cuda(q, k, v, do, lse_p, delta, causal, window)
+        torch.cuda.synchronize()
+        errs["repeat_bit_for_bit"] = {"flash_dq": torch.equal(dq, dq2),
+                                      "flash_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+        if not all(errs["repeat_bit_for_bit"].values()):
+            raise AssertionError(f"two calls differ at {case}: {errs['repeat_bit_for_bit']}")
     return errs
 
 
 def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dq_p, dk_p, dv_p) -> dict:
-    """What the bf16 checks read on four faults a kernel could have, each
+    """What the bf16 checks read on six faults a kernel could have, each
     built in fp32 from the plain formulas at ``case`` and rounded as the
     kernel rounds its output: the forward dropping the last key tile (the
     tensor-core kernel's tile: 32 keys at hd 256, 64 below) of the last query
     tile of batch 0; the forward not rescaling its output accumulator when the row
-    max grows (the same rows); dq dropping the last key tile (64 keys, its
-    tensor-core kernel's tile) of the same rows; dk/dv dropping the first
+    max grows (the same rows); dq dropping the last visible key tile (64 keys,
+    its kernel's tile) of the same rows, and of the 64 rows from the middle of
+    the last batch (a diagonal tile under causality); dk/dv dropping the first
     query tile (64 rows) that sees the key block in the middle of batch 0, kv
-    head 0.  Each must read above its tolerance, so that the check at this
+    head 0; dk/dv of that key block leaving the group's last query head out of
+    its sum.  Each must read above its tolerance, so that the check at this
     shape can fail a wrong kernel."""
     B, S, T, H, Kv, hd, causal, window = case
     G, scale, bn = H // Kv, fa._scale(hd, None), 32 if hd >= 256 else 64
@@ -549,16 +575,25 @@ def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dq_p, dk_p, dv_p) -> di
            "fwd_output_not_rescaled": {
                "o_row_rel": row_rel_err((acc / l[..., None]).to(o_p.dtype), o_want)}}
 
-    # dq of the same rows without the last visible 64-key tile
-    j0 = (int(vis[-1].nonzero().max()) // 64) * 64
-    sj = torch.where(vis[:, j0:j0 + 64], s[..., j0:j0 + 64], fa.NEG_INF)
-    pj = torch.exp(sj - lse_p[0, :, r0:, None])
-    dpj = f32(do[0, r0:]).transpose(0, 1) @ vh[:, j0:j0 + 64].transpose(1, 2)
-    dsj = pj * (dpj - delta[0, :, r0:, None]) * scale
-    dq_want = dq_p[0, r0:].transpose(0, 1)
-    dq_bad = f32(dq_want) - dsj @ kh[:, j0:j0 + 64]
-    out["dq_last_key_tile_dropped"] = {
-        "dq_row_rel": row_rel_err(dq_bad.to(dq_p.dtype), dq_want)}
+    def dq_tile_dropped(bi, r0):
+        """dq of rows [r0, r0 + 64) of batch bi, every head, without the
+        last 64-key tile the last of them sees."""
+        vis = mask[r0:r0 + 64]
+        khb = f32(k[bi]).repeat_interleave(G, dim=1).transpose(0, 1)
+        vhb = f32(v[bi]).repeat_interleave(G, dim=1).transpose(0, 1)
+        j0 = (int(vis[-1].nonzero().max()) // 64) * 64
+        qj = f32(q[bi, r0:r0 + 64]).transpose(0, 1)
+        sj = qj @ khb[:, j0:j0 + 64].transpose(1, 2) * scale
+        sj = torch.where(vis[:, j0:j0 + 64], sj, fa.NEG_INF)
+        pj = torch.exp(sj - lse_p[bi, :, r0:r0 + 64, None])
+        dpj = f32(do[bi, r0:r0 + 64]).transpose(0, 1) @ vhb[:, j0:j0 + 64].transpose(1, 2)
+        dsj = pj * (dpj - delta[bi, :, r0:r0 + 64, None]) * scale
+        dq_want = dq_p[bi, r0:r0 + 64].transpose(0, 1)
+        dq_bad = f32(dq_want) - dsj @ khb[:, j0:j0 + 64]
+        return {"dq_row_rel": row_rel_err(dq_bad.to(dq_p.dtype), dq_want)}
+
+    out["dq_last_key_tile_dropped"] = dq_tile_dropped(0, S - 64)
+    out["dq_last_key_tile_dropped_mid_rows"] = dq_tile_dropped(B - 1, (S // 2 // 64) * 64)
 
     # dk/dv of keys [k0, k0 + 64), kv head 0 (q heads 0 .. G-1), batch 0,
     # without query rows [i0, i0 + 64)
@@ -577,6 +612,15 @@ def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dq_p, dk_p, dv_p) -> di
     out["dkv_first_query_tile_dropped"] = {
         "dk_row_rel": row_rel_err(dk_bad.to(dk_p.dtype), dk_want),
         "dv_row_rel": row_rel_err(dv_bad.to(dv_p.dtype), dv_want)}
+
+    # the same keys without query head G - 1 (every row it sees) in the group's sum
+    qh, doh = f32(q[0, :, G - 1]), f32(do[0, :, G - 1])
+    st = torch.where(mask[:, k0:k0 + 64], qh @ kk.T * scale, fa.NEG_INF)
+    p = torch.exp(st - lse_p[0, G - 1, :, None])
+    ds = p * (doh @ vv.T - delta[0, G - 1, :, None]) * scale
+    out["dkv_group_head_dropped"] = {
+        "dk_row_rel": row_rel_err((f32(dk_want) - ds.T @ qh).to(dk_p.dtype), dk_want),
+        "dv_row_rel": row_rel_err((f32(dv_want) - p.T @ doh).to(dv_p.dtype), dv_want)}
 
     missed = {f"{fault}.{key}": x for fault, r in out.items() for key, x in r.items()
               if x <= (BF16_LSE_ATOL if key == "lse_abs" else BF16_ROW_RTOL)}
@@ -645,10 +689,12 @@ def bounds(B, S, T, H, Kv, hd, causal, window, itemsize) -> dict:
     return out
 
 
-def time_case(case, dtype, reps) -> dict:
+def time_case(case, dtype, reps, split=False) -> dict:
     """ms of each kernel, of its plain version and of the library call
     (``F.scaled_dot_product_attention`` forward / autograd backward; a
-    yardstick only — the port never calls it)."""
+    yardstick only — the port never calls it); with ``split``, also each
+    backward call by device kernel (``split_ms``: at LM-100M's shape the
+    calls are too short for the device profiler, which then records none)."""
     B, S, T, H, Kv, hd, causal, window = case
     q, k, v, do = make_inputs(7, B, S, T, H, Kv, hd, dtype)
     o, lse = fa.flash_fwd_cuda(q, k, v, causal, window)
@@ -677,9 +723,17 @@ def time_case(case, dtype, reps) -> dict:
                                                   retain_graph=True), reps)
     lib = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd, "flash_dkv": lib_bwd}
     bnd = bounds(B, S, T, H, Kv, hd, causal, window, q.element_size())
-    return {name: {"ms": ms[name], "plain_ms": plain[name], "library_ms": lib[name],
-                   "bound_ms": bnd[name]["bound_ms"], "bound_by": bnd[name]["bound_by"]}
-            for name in FLASH}
+    out = {name: {"ms": ms[name], "plain_ms": plain[name], "library_ms": lib[name],
+                  "bound_ms": bnd[name]["bound_ms"], "bound_by": bnd[name]["bound_by"]}
+           for name in FLASH}
+    # the backward calls by device kernel, and what of ``ms`` no kernel took
+    # (the wrapper's host time, the TMA maps' encoding among it)
+    for name, fn in (("flash_dq", lambda: fa.flash_dq_cuda(*bw)),
+                     ("flash_dkv", lambda: fa.flash_dkv_cuda(*bw))) if split else ():
+        split = device_split(fn, 5)
+        split["no kernel"] = ms[name] - sum(split.values())
+        out[name]["split_ms"] = split
+    return out
 
 
 SMALL_CASES = [
@@ -800,7 +854,7 @@ def phase_kernels_flash(cfg, moe_cfg) -> dict:
         case = (TRAIN_BATCH, SEQ, SEQ, c.n_heads, c.n_kv_heads, c.head_dim_, True, window)
         errs = check_case(case, torch.bfloat16, 2e-2, 2e-2, seed=100, faults=True)
         torch.cuda.empty_cache()
-        timed = time_case(case, torch.bfloat16, reps=5)
+        timed = time_case(case, torch.bfloat16, reps=5, split=True)
         torch.cuda.empty_cache()
         for name in FLASH:
             timed[name]["max_abs_err"] = errs[name]
@@ -3915,6 +3969,8 @@ def main() -> None:
                     entry["dq_plus_dkv_ms"] = {
                         layer: timed[layer]["flash_dq"]["ms"] + timed[layer]["flash_dkv"]["ms"]
                         for layer in ("global", "window", "olmoe")}
+                    entry["split_ms"] = {layer: timed[layer][name]["split_ms"]
+                                         for layer in ("global", "window", "olmoe")}
             else:
                 t = timed["more"][name]
                 entry.update({"max_abs_err": t["max_abs_err"], "tol": t.get("tol", 2e-2),

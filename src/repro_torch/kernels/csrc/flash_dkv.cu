@@ -9,7 +9,10 @@
 //
 // What bounds it on this card: operations — four hd-deep products per score
 // entry (s, dp, pᵀ·do, dsᵀ·q), 8·hd FLOPs, against q, k, v, do read once and
-// dk, dv written once.
+// dk, dv written once.  Beside them each visible entry takes one exponent on
+// the special-function units (16 a clock an SM): at olmoe-1b-7b's shape
+// (hd 128) 0.145 ms against the products' 0.556 ms, so the elementwise
+// passes have to run while products are in flight.
 //
 // Both kernels below share the design of the group sum: the TPU version
 // writes fp32 dk/dv per q-head, (B·H, T, hd), and sums the G heads of a group
@@ -23,41 +26,53 @@
 // tiles, which every query sees under causality, start first.  Query tiles
 // that causality or the window hide wholly are never visited.
 //
-// * bf16 -> flash_dkv_tc_kernel, on the tensor cores.  A block of 8 warps
-//   owns 64 keys.  Q, dO, lse and delta stream through a two-stage ring
-//   filled by cp.async (the next tile loads while this one is multiplied).
-//   All four products are `mma.sync.m16n8k16` (bf16 operands by ldmatrix,
-//   fp32 accumulators).  Per query tile:
-//     1. sᵀ = k·qᵀ and dpᵀ = v·doᵀ (64 keys x 64 queries); warp w forms the
-//        16 x 32 pieces at keys 16 (w % 4), queries 32 (w / 4);
-//     2. pᵀ = exp2(sᵀ·scale·log2 e − lse·log2 e) and dsᵀ = pᵀ·(dpᵀ − delta)·scale
-//        in fp32 registers, then rounded to bf16 — the one rounding the fp32
-//        path does not have — into two 64 x 64 shared tiles;
-//     3. dv += pᵀ·do and dk += dsᵀ·q; warp w owns keys 16 (w % 4) and head-dim
-//        columns (hd / 2)·(w / 4) of both accumulators.
-//   Registers at hd = 256: dk and dv, 16 x 128 fp32 each / 32 lanes = 128,
-//   sᵀ and dpᵀ 2 x 16, fragments 16 (ptxas: 246 registers, no spills).  A
-//   warp that owned 16 keys x all 256 columns would need 256 accumulator
-//   registers; splitting the columns over two warps is why pᵀ and dsᵀ go
-//   through shared memory (both warps of a key row need all 64 query columns
-//   of it).  Why mma.sync and not wgmma: the 64-row wgmma tile would hold
-//   64 keys x 256 columns of dk and dv in one warpgroup's registers (256 a
-//   thread), which does not fit; wgmma with the accumulators split over
-//   warpgroups is the next step.
-//   Shared memory at hd = 256: K, V, and two stages of Q and dO at 264 bf16 a
-//   row, plus pᵀ, dsᵀ, lse, delta: 222,208 bytes, one block (8 warps) an SM.
-//   Distance from the bound (B 4, S = T 4096, H 4, Kv 1, hd 256, causal,
-//   chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power limit):
-//   1.255 ms against 0.278 ms, 22 %, on a global layer; 0.388 ms against
-//   0.0651 ms, 17 %, with a 512-key window.  What is left, inferred rather
-//   than measured: shared memory bandwidth (each warp reads its operands for
-//   16 rows; pᵀ and dsᵀ make a round trip) and 256 blocks on 132 SMs, one
-//   block an SM.
+// * bf16 -> flash_dkv_wg_kernel, on `wgmma` (hopper.cuh, flash_wg.cuh).  A
+//   block of two warpgroups keeps its keys' K and V in shared memory; Q, dO,
+//   lse and delta of each (head of the group, query tile) pair stream
+//   through a ring of mbarrier stages (Q and dO one TMA box a 64-row tile,
+//   hop::make_tile_map; lse and delta a bulk copy each), issued by thread 0
+//   (no producer warp: see ssd_chunk.cu's note).  The score tiles are formed
+//   transposed (keys x queries).  Per pair: sᵀ = k·qᵀ and dpᵀ = v·doᵀ, pᵀ =
+//   exp2(sᵀ·scale·log2 e − lse·log2 e) and dsᵀ = pᵀ·(dpᵀ − delta)·scale in
+//   fp32 registers, both rounded to bf16 — the one rounding the fp32 path
+//   does not have — then dv += pᵀ·do and dk += dsᵀ·q with do and q read
+//   MN-major.  Two layouts by head dim:
+//     - hd <= 128 ("rows"): 128 keys a block, 64 a warpgroup with all hd
+//       columns of dk and dv in its registers (hd 128: 128 accumulators a
+//       thread, 234 registers in all); m64n64 score products from shared
+//       memory, pᵀ and dsᵀ as the register A operands of the m64nhd products
+//       (`fa::c_to_a`, as FlashAttention-3's backward); each warpgroup runs
+//       on its own, and a stage is refilled once both have released it (an
+//       mbarrier of two arrivals that thread 0 waits on).
+//     - hd 256 ("split"): 64 keys a block; one warpgroup cannot hold 64 x 256
+//       of both dk and dv (256 registers a thread), so warpgroup w owns
+//       columns 128 w .. 128 w + 127 of both.  It forms sᵀ and dpᵀ for
+//       queries 32 w .. 32 w + 31 of the tile (m64n32; K held in registers
+//       as the A operand of sᵀ, 64 a thread), writes its pᵀ and dsᵀ into two
+//       64 x 64 swizzled bf16 tiles, and after a block barrier reads them
+//       whole as the A operand of its m64n128 products.  Splitting the
+//       columns of dk, dv at hd 128 as well ran slower (PERF.md §6).
+//   Masked entries get p = 0 before the exponent is taken; a tile the mask
+//   leaves whole takes a branch without the per-entry test, and the
+//   exponent is one ex2.approx.ftz (flash_wg.cuh).  Registers (ptxas) at hd
+//   16 / 32 / 64 / 128 / 256: 122 / 137 / 168 / 234 / 254, no spill; shared
+//   memory 23,096 / 43,576 / 84,536 / 166,456 / 215,080 bytes, one block an
+//   SM.
+//   Distance from the bound (B 4, S = T 4096, causal; chip_smoke.py on an
+//   NVIDIA H100 80GB HBM3 at a 700 W power limit; PERF.md row 3): gemma3-1b's
+//   global layer (H 4, Kv 1, hd 256) 0.532 ms against 0.278 ms, 52 %; its
+//   512-key window 0.181 ms against 0.0651 ms, 36 %; olmoe-1b-7b's layer
+//   (H = Kv = 16, hd 128) 1.135 ms against 0.556 ms, 49 % (the mma.sync
+//   kernel: 1.226, 0.388, 3.01 ms).  What is left, from a clock64 count of
+//   the phases (scripts/flash_bwd_phases.py): the score products read both
+//   operands from shared memory (m64n64 at hd 128, m64n32 at hd 256); thread
+//   0's copies and its wait for the other warpgroup to release a stage; at
+//   hd 256 the two block barriers of each pair.
 // * fp32 -> flash_dkv_kernel, IEEE fp32 FMAs from fp32 shared tiles, 32 keys
 //   a block (below), so fp32 inputs keep their 5e-5 parity with the plain
 //   version.
 #include "flash_common.cuh"
-#include "flash_mma.cuh"
+#include "flash_wg.cuh"
 
 namespace fa {
 
@@ -178,218 +193,345 @@ int launch_dkv_fma(const void* q, const void* k, const void* v, const void* dout
   return (int)cudaGetLastError();
 }
 
-// ---- bf16 on the tensor cores -------------------------------------------------
+// ---- bf16 on wgmma --------------------------------------------------------------
 
 template <int D>
-struct DkvTc {
-  static constexpr int BN = 64;    // keys of a block, 16 a warp row
-  static constexpr int BM = 64;    // query rows of a streamed tile
-  static constexpr int NTH = 256;  // 8 warps
-  static constexpr int LD = D + 8, LDP = BM + 8;  // shared row strides, bf16
-  static constexpr size_t SMEM =
-      sizeof(bf16) * ((2 * BN + 2 * 2 * BM) * LD + 2 * BN * LDP) + sizeof(float) * 2 * 2 * BM;
+struct DkvWg {
+  // hd 256: the head-dim columns of dk and dv split over the two warpgroups
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int BN = SPLIT ? 64 : 128;   // keys of a block (64 a warpgroup unless SPLIT)
+  static constexpr int BM = 64;                 // query rows of a streamed tile
+  static constexpr int NTH = 256;               // two warpgroups
+  static constexpr int STAGES = SPLIT ? 2 : 3;  // the Q, dO, lse, delta ring
+  static constexpr int DN = SPLIT ? D / 2 : D;  // columns of dk, dv a warpgroup owns
+  static constexpr int TILE = 64 * D * 2;       // bytes of a 64-row bf16 tile
+  // K, V; the ring's Q, dO; pᵀ, dsᵀ (SPLIT); lse, delta; the barriers; and
+  // 1024 bytes to align the base
+  static constexpr size_t SMEM = 1024 + (size_t)(2 * BN / 64 + 2 * STAGES) * TILE +
+                                 (SPLIT ? 2 * BN * BM * 2 : 0) + STAGES * 2 * BM * 4 +
+                                 (1 + 2 * STAGES) * 8;
 };
 
-// grid (B, Kv, T / BN); q, do: (B,S,H,D); k, v, dk, dv: (B,T,Kv,D);
-// lse, delta: (B,H,S).
+// grid (B, Kv, ceil(T / BN)); q, do: (B,S,H,D) and k, v by TMA (maps);
+// dk, dv: (B,T,Kv,D); lse, delta: (B,H,S).  See the note at the top.
 template <int D>
-__global__ void __launch_bounds__(DkvTc<D>::NTH, 1)
-flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Tk, int H, int Kv,
-                    int causal, int window, float scale) {
-  using C = DkvTc<D>;
-  constexpr int BN = C::BN, BM = C::BM, LD = C::LD, LDP = C::LDP, NTH = C::NTH;
-  constexpr int DW = D / 2;     // head-dim columns of dk / dv a warp owns
-  constexpr int NDW = DW / 8;   // their 8-wide column tiles (1 at hd = 16)
-  extern __shared__ float4 smem_f4[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_f4);
-  bf16* sV = sK + BN * LD;
-  bf16* sQ = sV + BN * LD;        // [2 stages][BM][LD]
-  bf16* sdO = sQ + 2 * BM * LD;   // [2 stages][BM][LD]
-  bf16* sPt = sdO + 2 * BM * LD;  // [BN][LDP]
-  bf16* sdSt = sPt + BN * LDP;    // [BN][LDP]
-  float* sLse = reinterpret_cast<float*>(sdSt + BN * LDP);  // [2 stages][BM]
-  float* sDelta = sLse + 2 * BM;                            // [2 stages][BM]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = (warp & 3) * 16;  // the warp's 16 keys
-  const int wq = (warp >> 2) * 32; // step 1: its 32 queries of the tile
-  const int wd = (warp >> 2) * DW; // step 3: its head-dim columns
+__global__ void __launch_bounds__(DkvWg<D>::NTH, 1)
+flash_dkv_wg_kernel(const __grid_constant__ FlashMaps maps, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int S, int Tk, int H, int Kv, int causal, int window,
+                    float scale) {
+  using C = DkvWg<D>;
+  constexpr int BN = C::BN, BM = C::BM, ST = C::STAGES, DN = C::DN;
+  constexpr bool SPLIT = C::SPLIT;
+  constexpr int SC = hop::Sw<D>::C;  // columns of a sub-tile
+  extern __shared__ uint8_t smem_raw[];
   const int b = blockIdx.x, kvh = blockIdx.y, k0 = blockIdx.z * BN;
-  const int G = H / Kv;
-  const int off = Tk - S;
-  const int64_t q_stride = (int64_t)H * D, k_stride = (int64_t)Kv * D;
-  const int64_t k_base = (((int64_t)b * Tk + k0) * Kv + kvh) * D;
-
+  const int G = H / Kv, off = Tk - S;
+  const int kb = min(BN, Tk - k0);  // the block's keys: BN, or 64 in a ragged last block
   int qt_lo, qt_hi;
-  query_tile_range(k0, BN, BM, off, S, causal, window, &qt_lo, &qt_hi);
+  query_tile_range(k0, kb, BM, off, S, causal, window, &qt_lo, &qt_hi);
   const int nq = qt_hi - qt_lo, n_it = G * nq;  // (head of the group, query tile) pairs
-  auto load_q = [&](int it, int stage) {
-    const int h = kvh * G + it / nq, q0 = (qt_lo + it % nq) * BM;
-    const int64_t base = (((int64_t)b * S + q0) * H + h) * D;
-    cp_tile<D, LD, BM, NTH>(sQ + stage * BM * LD, q + base, q_stride);
-    cp_tile<D, LD, BM, NTH>(sdO + stage * BM * LD, dout + base, q_stride);
-    const int64_t row = ((int64_t)b * H + h) * S + q0;
-    if (threadIdx.x < BM / 4)
-      cp_async16(sLse + stage * BM + threadIdx.x * 4, lse + row + threadIdx.x * 4);
-    else if (threadIdx.x < BM / 2)
-      cp_async16(sDelta + stage * BM + (threadIdx.x - BM / 4) * 4,
-                 delta + row + (threadIdx.x - BM / 4) * 4);
-  };
-  if (n_it > 0) {
-    cp_tile<D, LD, BN, NTH>(sK, k + k_base, k_stride);
-    cp_tile<D, LD, BN, NTH>(sV, v + k_base, k_stride);
-    load_q(0, 0);
-  }
-  cp_async_commit();
+  // the warpgroup, broadcast from lane 0 so that ptxas sees it (and what
+  // follows from it) as uniform over the warp: a product under a branch it
+  // cannot prove uniform is serialized
+  const int w = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0), tid = threadIdx.x & 127;
+  const int wq = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // the warpgroup's 64 keys (SPLIT: the block's, and columns DN w .. of dk, dv)
+  const int kw0 = SPLIT ? k0 : k0 + 64 * w;
+  const bool active = kw0 < Tk;
+  const int col0 = SPLIT ? DN * w : 0;
 
-  float acc_k[NDW][4], acc_v[NDW][4];
+  float acc_k[DN / 2], acc_v[DN / 2];
 #pragma unroll
-  for (int n = 0; n < NDW; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc_k[n][e] = 0.f;
-      acc_v[n][e] = 0.f;
+  for (int i = 0; i < DN / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  if (n_it > 0) {  // else no query sees these keys: dk = dv = 0
+    uint8_t* base = smem_base(smem_raw);
+    bf16* sK = reinterpret_cast<bf16*>(base);  // 64-row tiles, one a warpgroup unless SPLIT
+    bf16* sV = sK + BN * D;
+    bf16* sQ = sV + BN * D;                    // [ST][BM][D]
+    bf16* sdO = sQ + ST * BM * D;              // [ST][BM][D]
+    bf16* sP = sdO + ST * BM * D;              // SPLIT: pᵀ [BN][BM]
+    bf16* sdS = sP + (SPLIT ? BN * BM : 0);    // SPLIT: dsᵀ [BN][BM]
+    float* sL = reinterpret_cast<float*>(sdS + (SPLIT ? BN * BM : 0));  // [ST][BM]
+    float* sDl = sL + ST * BM;                                           // [ST][BM]
+    uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDl + ST * BM);
+    uint64_t* full = kv_full + 1;  // [ST]: a stage's copies are in
+    uint64_t* empty = full + ST;   // [ST]: both warpgroups are done with it
+    if (threadIdx.x == 0) {
+      hop::mbar_init(kv_full, 1);
+      for (int s = 0; s < ST; ++s) {
+        hop::mbar_init(&full[s], 1);
+        hop::mbar_init(&empty[s], 2);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-
-  const float sl2 = scale * LOG2E;
-  const bf16* sKw = sK + wr * LD;
-  const bf16* sVw = sV + wr * LD;
-  for (int it = 0; it < n_it; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_it) load_q(it + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // all but the newest group: K, V and tile it are in
     __syncthreads();
-    const bf16* sQs = sQ + stage * BM * LD;
-    const bf16* sdOs = sdO + stage * BM * LD;
-    const float* sL = sLse + stage * BM;
-    const float* sDl = sDelta + stage * BM;
-    const int q0 = (qt_lo + it % nq) * BM;
 
-    // 1. sᵀ = k·qᵀ and dpᵀ = v·doᵀ, 16 keys x 32 queries a warp
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        st[n][e] = 0.f;
-        dpt[n][e] = 0.f;
+    // pair n (head kvh G + n / nq, query tile qt_lo + n % nq) into stage n % ST,
+    // issued by thread 0
+    auto issue = [&](int n) {
+      const int s = n % ST, h = kvh * G + n / nq, q0 = (qt_lo + n % nq) * BM;
+      const int64_t row = ((int64_t)b * H + h) * S + q0;
+      hop::fence_async_smem();
+      hop::mbar_expect_tx(&full[s], 2 * C::TILE + 2 * BM * 4);
+      tma_rows(sQ + s * BM * D, &maps.q, q0, h, b, &full[s]);
+      tma_rows(sdO + s * BM * D, &maps.dout, q0, h, b, &full[s]);
+      hop::bulk_load(sL + s * BM, lse + row, BM * 4, &full[s]);
+      hop::bulk_load(sDl + s * BM, delta + row, BM * 4, &full[s]);
+    };
+    if (threadIdx.x == 0) {
+      hop::mbar_expect_tx(kv_full, 2 * (kb / 64) * C::TILE);
+      for (int r = 0; r < kb; r += 64) {
+        tma_rows(sK + r * D, &maps.k, k0 + r, kvh, b, kv_full);
+        tma_rows(sV + r * D, &maps.v, k0 + r, kvh, b, kv_full);
       }
-#pragma unroll
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      uint32_t ak[4], av[4];
-      ldsm_x4(ak, a_addr(sKw, LD, d0, lane));
-      ldsm_x4(av, a_addr(sVw, LD, d0, lane));
-#pragma unroll
-      for (int n = 0; n < 4; n += 2) {
-        uint32_t bq[4], bo[4];
-        ldsm_x4(bq, bt_addr(sQs, LD, wq + n * 8, d0, lane));
-        mma_bf16(st[n], ak, bq[0], bq[1]);
-        mma_bf16(st[n + 1], ak, bq[2], bq[3]);
-        ldsm_x4(bo, bt_addr(sdOs, LD, wq + n * 8, d0, lane));
-        mma_bf16(dpt[n], av, bo[0], bo[1]);
-        mma_bf16(dpt[n + 1], av, bo[2], bo[3]);
-      }
+      for (int n = 0; n < ST && n < n_it; ++n) issue(n);
     }
+    __syncwarp();
 
-    // 2. pᵀ and dsᵀ in fp32, stored to shared memory as bf16
-    const bool full = (!causal || k0 + BN - 1 <= q0 + off) &&
-                      (window <= 0 || q0 + BM - 1 + off - k0 < window);
+    const bf16* sKw = sK + (SPLIT ? 0 : 64 * w * D);
+    const bf16* sVw = sV + (SPLIT ? 0 : 64 * w * D);
+    const int kr = kw0 + 16 * wq + g;  // the thread's keys kr, kr + 8
+    const float sl2 = scale * LOG2E;
+    hop::mbar_wait(kv_full, 0);
+    // hd 256: K, the A operand of every sᵀ product, held in registers
+    uint32_t ka[SPLIT ? D / 16 : 1][4];
+    if constexpr (SPLIT) hop::tile_a_regs<D>(ka, sK, wq, lane);
+    if constexpr (!SPLIT) {
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % ST, q0 = (qt_lo + it % nq) * BM;
+        const bf16* sQs = sQ + s * BM * D;
+        const bf16* sdOs = sdO + s * BM * D;
+        const float* L = sL + s * BM;
+        const float* Dl = sDl + s * BM;
+        const bool none = !active || (causal && kw0 > q0 + BM - 1 + off) ||
+                          (window > 0 && q0 + off - (kw0 + 63) >= window);
+        const bool all = (!causal || kw0 + 63 <= q0 + off) &&
+                         (window <= 0 || q0 + BM - 1 + off - kw0 < window);
+        hop::mbar_wait(&full[s], (it / ST) & 1);
+        if (!none) {
+          // sᵀ = k·qᵀ and dpᵀ = v·doᵀ: the warpgroup's 64 keys x 64 queries
+          float st[32], dpt[32];
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int qc = wq + 8 * n + 2 * t;  // query column of c0 / c2
+          for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+          hop::wg_fence();
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {       // key row g, then g + 8
-        const int kr = wr + g + 8 * i;
-        float p[2], ds[2];
+          for (int k = 0; k < D / 16; ++k)
+            hop::wgmma_ss<0>(st, hop::Sw<D>::desc_k(sKw, k, 64), hop::Sw<D>::desc_k(sQs, k, BM),
+                             1);
+          hop::wg_commit();
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qr = qc + e;
-          const bool vis = full || visible(q0 + qr + off, k0 + kr, causal, window);
-          p[e] = vis ? exp2f(st[n][2 * i + e] * sl2 - sL[qr] * LOG2E) : 0.f;
-          ds[e] = p[e] * (dpt[n][2 * i + e] - sDl[qr]) * scale;
+          for (int k = 0; k < D / 16; ++k)
+            hop::wgmma_ss<0>(dpt, hop::Sw<D>::desc_k(sVw, k, 64),
+                             hop::Sw<D>::desc_k(sdOs, k, BM), 1);
+          hop::wg_commit();
+          // pᵀ = exp2(sᵀ·scale·log2 e − lse·log2 e) while dpᵀ is formed
+          hop::wg_wait<1>();
+          hop::fence_regs(st);
+          if (all) {  // every entry visible (a tile of the warpgroup, so uniform)
+#pragma unroll
+            for (int nb = 0; nb < 8; ++nb) {
+              const int qc = 8 * nb + 2 * t;
+              const float2 l2 = *reinterpret_cast<const float2*>(L + qc);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                st[4 * nb + e] = ex2(st[4 * nb + e] * sl2 - ((e & 1) ? l2.y : l2.x) * LOG2E);
+            }
+          } else {
+#pragma unroll
+            for (int nb = 0; nb < 8; ++nb) {
+              const int qc = 8 * nb + 2 * t;
+              const float2 l2 = *reinterpret_cast<const float2*>(L + qc);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = 4 * nb + e;
+                const float x = st[i] * sl2 - ((e & 1) ? l2.y : l2.x) * LOG2E;
+                st[i] = visible(q0 + qc + (e & 1) + off, kr + 8 * (e >> 1), causal, window) ? ex2(x)
+                                                                                          : 0.f;
+              }
+            }
+          }
+          hop::wg_wait<0>();
+          hop::fence_regs(dpt);
+          // dsᵀ = pᵀ·(dpᵀ − delta)·scale
+#pragma unroll
+          for (int nb = 0; nb < 8; ++nb) {
+            const float2 d2 = *reinterpret_cast<const float2*>(Dl + 8 * nb + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * nb + e;
+              dpt[i] = st[i] * (dpt[i] - ((e & 1) ? d2.y : d2.x)) * scale;
+            }
+          }
+          // dv += pᵀ·do and dk += dsᵀ·q: pᵀ and dsᵀ rounded to bf16 in the A operand
+          uint32_t pa[4][4], da[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            c_to_a(pa[kk], st + 8 * kk, st + 8 * kk + 4);
+            c_to_a(da[kk], dpt + 8 * kk, dpt + 8 * kk + 4);
+          }
+          hop::wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hop::wgmma_rs<1>(acc_v, pa[kk], hop::Sw<D>::desc_mn(sdOs, kk, BM), 1);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hop::wgmma_rs<1>(acc_k, da[kk], hop::Sw<D>::desc_mn(sQs, kk, BM), 1);
+          hop::wg_commit();
+          hop::wg_wait<0>();
+          hop::fence_regs(acc_v);
+          hop::fence_regs(acc_k);
         }
-        *reinterpret_cast<uint32_t*>(sPt + kr * LDP + qc) = pack_bf16(p[0], p[1]);
-        *reinterpret_cast<uint32_t*>(sdSt + kr * LDP + qc) = pack_bf16(ds[0], ds[1]);
+        // the stage is free once both warpgroups are done with it
+        hop::bar_sync(1 + w, 128);
+        if (tid == 0) hop::mbar_arrive(&empty[s]);
+        if (threadIdx.x == 0 && it + ST < n_it) {
+          hop::mbar_wait(&empty[s], (it / ST) & 1);
+          issue(it + ST);
+        }
+      }
+    } else {
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % ST, q0 = (qt_lo + it % nq) * BM;
+        const bf16* sQs = sQ + s * BM * D;
+        const bf16* sdOs = sdO + s * BM * D;
+        const float* L = sL + s * BM;
+        const float* Dl = sDl + s * BM;
+        const bool all = (!causal || kw0 + 63 <= q0 + off) &&
+                         (window <= 0 || q0 + BM - 1 + off - kw0 < window);
+        hop::mbar_wait(&full[s], (it / ST) & 1);
+        // sᵀ and dpᵀ of the block's 64 keys x this warpgroup's 32 queries
+        float st[16], dpt[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) st[i] = dpt[i] = 0.f;
+        hop::wg_fence();
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)
+          hop::wgmma_rs<0>(st, ka[k], hop::Sw<D>::desc_k(sQs + 32 * w * SC, k, BM), 1);
+        hop::wg_commit();
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)
+          hop::wgmma_ss<0>(dpt, hop::Sw<D>::desc_k(sV, k, 64),
+                           hop::Sw<D>::desc_k(sdOs + 32 * w * SC, k, BM), 1);
+        hop::wg_commit();
+        hop::wg_wait<1>();
+        hop::fence_regs(st);
+        if (all) {  // every entry visible (a tile of the block, so uniform)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const int qc = 32 * w + 8 * nb + 2 * t;
+            const float2 l2 = *reinterpret_cast<const float2*>(L + qc);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              st[4 * nb + e] = ex2(st[4 * nb + e] * sl2 - ((e & 1) ? l2.y : l2.x) * LOG2E);
+          }
+        } else {
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const int qc = 32 * w + 8 * nb + 2 * t;
+            const float2 l2 = *reinterpret_cast<const float2*>(L + qc);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * nb + e;
+              const float x = st[i] * sl2 - ((e & 1) ? l2.y : l2.x) * LOG2E;
+              st[i] = visible(q0 + qc + (e & 1) + off, kr + 8 * (e >> 1), causal, window) ? ex2(x)
+                                                                                        : 0.f;
+            }
+          }
+        }
+        hop::wg_wait<0>();
+        hop::fence_regs(dpt);
+        // pᵀ and dsᵀ rounded to bf16 into the 64 x 64 canonical tiles, which
+        // both warpgroups read whole as the A operand
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          const int qc = 32 * w + 8 * nb + 2 * t;
+          const float2 d2 = *reinterpret_cast<const float2*>(Dl + qc);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int i = 4 * nb + 2 * h2;
+            const float ds0 = st[i] * (dpt[i] - d2.x) * scale;
+            const float ds1 = st[i + 1] * (dpt[i + 1] - d2.y) * scale;
+            const int o = hop::Sw<64>::off(16 * wq + g + 8 * h2, qc, 64);
+            *reinterpret_cast<uint32_t*>(reinterpret_cast<uint8_t*>(sP) + o) =
+                pack_bf16(st[i], st[i + 1]);
+            *reinterpret_cast<uint32_t*>(reinterpret_cast<uint8_t*>(sdS) + o) =
+                pack_bf16(ds0, ds1);
+          }
+        }
+        hop::fence_async_smem();
+        hop::bar_sync(3, 256);  // pᵀ and dsᵀ are whole
+        // dv += pᵀ·do and dk += dsᵀ·q over this warpgroup's columns
+        hop::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_ss<1>(acc_v, hop::Sw<64>::desc_k(sP, kk, 64),
+                           hop::Sw<D>::desc_mn(sdOs + DN * w * BM, kk, BM), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_ss<1>(acc_k, hop::Sw<64>::desc_k(sdS, kk, 64),
+                           hop::Sw<D>::desc_mn(sQs + DN * w * BM, kk, BM), 1);
+        hop::wg_commit();
+        hop::wg_wait<0>();
+        hop::fence_regs(acc_v);
+        hop::fence_regs(acc_k);
+        hop::bar_sync(3, 256);  // both are done with pᵀ, dsᵀ and the stage
+        if (threadIdx.x == 0 && it + ST < n_it) issue(it + ST);
+        __syncwarp();
       }
     }
-    __syncthreads();
-
-    // 3. dv += pᵀ·do, dk += dsᵀ·q: 16 keys x hd/2 columns a warp
-#pragma unroll
-    for (int j = 0; j < BM; j += 16) {
-      uint32_t ap[4], ads[4];
-      ldsm_x4(ap, a_addr(sPt + wr * LDP, LDP, j, lane));
-      ldsm_x4(ads, a_addr(sdSt + wr * LDP, LDP, j, lane));
-#pragma unroll
-      for (int n = 0; n + 1 < NDW; n += 2) {
-        uint32_t bo[4], bq[4];
-        ldsm_x4_t(bo, b_addr(sdOs, LD, wd + n * 8, j, lane));
-        mma_bf16(acc_v[n], ap, bo[0], bo[1]);
-        mma_bf16(acc_v[n + 1], ap, bo[2], bo[3]);
-        ldsm_x4_t(bq, b_addr(sQs, LD, wd + n * 8, j, lane));
-        mma_bf16(acc_k[n], ads, bq[0], bq[1]);
-        mma_bf16(acc_k[n + 1], ads, bq[2], bq[3]);
-      }
-      if constexpr (NDW % 2) {  // hd = 16: one 8-wide column tile a warp
-        uint32_t bo[2], bq[2];
-        ldsm_x2_t(bo, b_addr(sdOs, LD, wd + (NDW - 1) * 8, j, lane));
-        mma_bf16(acc_v[NDW - 1], ap, bo[0], bo[1]);
-        ldsm_x2_t(bq, b_addr(sQs, LD, wd + (NDW - 1) * 8, j, lane));
-        mma_bf16(acc_k[NDW - 1], ads, bq[0], bq[1]);
-      }
-    }
-    __syncthreads();  // everyone is done with this stage and with pᵀ, dsᵀ
   }
-  cp_async_wait<0>();  // nothing in flight at exit (an empty range issues loads too)
 
+  // dk and dv of the warpgroup's keys and columns, rounded to bf16 once
+  if (active) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int64_t row = k_base + (int64_t)(wr + g + 8 * i) * k_stride + wd + 2 * t;
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int64_t row =
+          (((int64_t)b * Tk + kw0 + 16 * wq + g + 8 * h2) * Kv + kvh) * D + col0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NDW; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + row + 8 * n) =
-          pack_bf16(acc_k[n][2 * i], acc_k[n][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + row + 8 * n) =
-          pack_bf16(acc_v[n][2 * i], acc_v[n][2 * i + 1]);
+      for (int nb = 0; nb < DN / 8; ++nb) {
+        *reinterpret_cast<uint32_t*>(dk + row + 8 * nb) =
+            pack_bf16(acc_k[4 * nb + 2 * h2], acc_k[4 * nb + 2 * h2 + 1]);
+        *reinterpret_cast<uint32_t*>(dv + row + 8 * nb) =
+            pack_bf16(acc_v[4 * nb + 2 * h2], acc_v[4 * nb + 2 * h2 + 1]);
+      }
     }
   }
 }
 
 template <int D>
-int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+int launch_dkv_wg(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dk, void* dv, int B, int S, int Tk,
                   int H, int Kv, int causal, int window, float scale, cudaStream_t stream) {
-  using C = DkvTc<D>;
-  if (Tk % C::BN || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+  using C = DkvWg<D>;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
       !aligned16(lse) || !aligned16(delta) || !aligned16(dk) || !aligned16(dv))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_dkv_tc_kernel<D>;
+  FlashMaps maps;
+  int e = flash_maps(&maps, q, k, v, dout, B, S, Tk, H, Kv, D);
+  if (e != 0) return e;
+  auto kernel = flash_dkv_wg_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, Kv, Tk / C::BN);
-  kernel<<<grid, C::NTH, C::SMEM, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                            (const bf16*)dout, lse, delta, (bf16*)dk,
-                                            (bf16*)dv, S, Tk, H, Kv, causal, window, scale);
+  dim3 grid(B, Kv, (Tk + C::BN - 1) / C::BN);
+  kernel<<<grid, C::NTH, C::SMEM, stream>>>(maps, lse, delta, (bf16*)dk, (bf16*)dv, S, Tk, H, Kv,
+                                            causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 // out: blocks of the grid, resident blocks an SM, threads a block, dynamic
 // shared memory bytes.
 template <int D>
-int grid_dkv_tc(int B, int T, int Kv, int* out) {
-  using C = DkvTc<D>;
-  auto kernel = flash_dkv_tc_kernel<D>;
+int grid_dkv_wg(int B, int T, int Kv, int* out) {
+  using C = DkvWg<D>;
+  auto kernel = flash_dkv_wg_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::SMEM);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, C::NTH, C::SMEM);
-  out[0] = B * Kv * (T / C::BN);
+  out[0] = B * Kv * ((T + C::BN - 1) / C::BN);
   out[2] = C::NTH;
   out[3] = (int)C::SMEM;
   return (int)err;
@@ -403,15 +545,15 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
                          int T, int H, int Kv, int hd, int causal, int window, float scale,
                          int is_bf16, void* stream) {
   if (S % fa::DKV_BM || T % fa::DKV_BN || T < S || H % Kv) return (int)cudaErrorInvalidValue;
-  // by type, not a fallback: bf16 only ever reaches the tensor-core kernel
+  // by type, not a fallback: bf16 only ever reaches the wgmma kernel
   if (is_bf16)
-    FA_SWITCH_HD(fa::launch_dkv_tc, hd, q, k, v, dout, (const float*)lse, (const float*)delta,
+    FA_SWITCH_HD(fa::launch_dkv_wg, hd, q, k, v, dout, (const float*)lse, (const float*)delta,
                  dk, dv, B, S, T, H, Kv, causal, window, scale, (cudaStream_t)stream);
   FA_SWITCH_HD(fa::launch_dkv_fma, hd, q, k, v, dout, (const float*)lse, (const float*)delta, dk,
                dv, B, S, T, H, Kv, causal, window, scale, (cudaStream_t)stream);
 }
 
-// The bf16 kernel's launch geometry for these dims (out[4], see grid_dkv_tc).
+// The bf16 kernel's launch geometry for these dims (out[4], see grid_dkv_wg).
 extern "C" int flash_dkv_grid(int B, int T, int Kv, int hd, int* out) {
-  FA_SWITCH_HD(fa::grid_dkv_tc, hd, B, T, Kv, out);
+  FA_SWITCH_HD(fa::grid_dkv_wg, hd, B, T, Kv, out);
 }

@@ -1,5 +1,6 @@
-// Tensor-core building blocks of the bf16 kernels (flash_fwd_tc_kernel,
-// flash_dq_tc_kernel, flash_dkv_tc_kernel, ssd_chunk_tc_kernel).
+// Tensor-core building blocks of the bf16 kernels on mma.sync
+// (flash_fwd_tc_kernel, ssd_chunk_tc_kernel), and the bf16 packing (pack_bf16,
+// c_to_a) that the wgmma kernels share (hopper.cuh).
 //
 // Products are `mma.sync.aligned.m16n8k16` with bf16 operands and fp32
 // accumulators; operands reach registers from shared memory by `ldmatrix`,

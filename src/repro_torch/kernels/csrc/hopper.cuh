@@ -1,15 +1,19 @@
-// Hopper (sm_90a) building blocks of the SSD chunk's bf16 backward
-// (ssd::ssd_chunk_bwd_wg_kernel): warpgroup products (`wgmma`), tile copies
-// by the Tensor Memory Accelerator (TMA) and the `mbarrier`s that report them.
+// Hopper (sm_90a) building blocks of the bf16 kernels that run on `wgmma`
+// (the SSD chunk's backward, ssd::ssd_chunk_bwd_wg_kernel, and the flash
+// backward, fa::flash_dq_wg_kernel and fa::flash_dkv_wg_kernel): warpgroup
+// products (`wgmma`), tile copies by the Tensor Memory Accelerator (TMA), the
+// `mbarrier`s that report them, and on the host the TMA maps of the inputs
+// (make_map, make_tile_map, through encode_tiled: the one lookup of
+// libcuda's encoder).
 //
 // Shared tiles, for every operand, are in wgmma's swizzled canonical layout,
 // as TMA writes it with CU_TENSOR_MAP_SWIZZLE_{32,64,128}B: a tile of R rows x
 // D bf16 columns is ceil(D / 64) sub-tiles of R rows x C = min(D, 64)
 // columns, row after row (2 C bytes: the swizzle width), the 16-byte chunks of
 // row r permuted by XOR with r's bits (Sw::off); sub-tiles start on 1024
-// bytes.  One TMA box of C columns x 64 rows fills a sub-tile.  The same tile
-// is read two ways (the descriptor's byte offsets in the terms of the PTX
-// ISA):
+// bytes.  One TMA box of C columns x 64 rows fills 64 rows of a sub-tile.  The
+// same tile is read two ways (the descriptor's byte offsets in the terms of
+// the PTX ISA):
 //   * K-major, the product contracting over the tile's columns (x·dyᵀ): rows
 //     2 C bytes apart, 8-row groups at SBO = 16 C; the k-th 16-deep step
 //     starts 32 (k mod C / 16) bytes into its sub-tile's rows;
@@ -24,6 +28,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_mma.cuh"
@@ -66,6 +71,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// One arrival (no transaction bytes).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // ---- TMA -------------------------------------------------------------------------
 
 // One box of a 5-d tensor map into shared memory, completing on `bar`.
@@ -78,6 +88,20 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "r"(c3), "r"(c4)
       : "memory");
 }
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned) into
+// shared memory, completing on `bar`: no tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Rows of a box of a tensor map (make_map, make_tile_map).
+constexpr int TMA_ROWS = 64;
 
 // Writes of this thread to shared memory made visible to the async proxy
 // (wgmma's operand reads); a barrier among the readers follows.
@@ -118,6 +142,22 @@ struct Sw {
     return desc(tile + 16 * k * C, rows * RB);
   }
 };
+
+// The register A operands of every 16-deep step of a product over a D-wide
+// 64-row canonical tile's columns: the warp's 16 rows, as wgmma_rs takes them.
+template <int D>
+__device__ __forceinline__ void tile_a_regs(uint32_t (&a)[D / 16][4], const bf16* tile, int warp,
+                                            int lane) {
+  const uint8_t* t = reinterpret_cast<const uint8_t*>(tile);
+  const int r = 16 * warp + (lane >> 2), c = 2 * (lane & 3);
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    a[k][0] = *reinterpret_cast<const uint32_t*>(t + Sw<D>::off(r, 16 * k + c, 64));
+    a[k][1] = *reinterpret_cast<const uint32_t*>(t + Sw<D>::off(r + 8, 16 * k + c, 64));
+    a[k][2] = *reinterpret_cast<const uint32_t*>(t + Sw<D>::off(r, 16 * k + 8 + c, 64));
+    a[k][3] = *reinterpret_cast<const uint32_t*>(t + Sw<D>::off(r + 8, 16 * k + 8 + c, 64));
+  }
+}
 
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -309,6 +349,91 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// ---- TMA maps, on the host ---------------------------------------------------------
+
+// cuTensorMapEncodeTiled of libcuda, reached through the runtime's entry-point
+// query (the libraries link nothing new).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                         &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// The TMA map of a bf16 input of D contiguous columns and four more logical
+// dims (row, head, chunk, batch; any of extent 1) of extents `ext` and
+// strides `str` (elements): dim 0 the D columns, then the other four by
+// stride, a dim of extent 1 last; boxes of min(D, 64) columns x TMA_ROWS rows,
+// swizzled (64 rows of one sub-tile of a canonical tile; rows past ext[0]
+// read as zeros).  `ord[k]` gets which logical dim dim k + 1 is.
+static inline int make_map(CUtensorMap* map, int* ord, const void* base, int D,
+                           const int64_t (&ext)[4], const int64_t (&str)[4]) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  int64_t key[4], big = 16;
+  for (int i = 0; i < 4; ++i) {
+    key[i] = ext[i] == 1 ? INT64_MAX : str[i];
+    if (ext[i] > 1 && 2 * str[i] > big) big = 2 * str[i];
+  }
+  int idx[4] = {0, 1, 2, 3};
+  for (int i = 1; i < 4; ++i)
+    for (int k = i; k > 0 && key[idx[k]] < key[idx[k - 1]]; --k) {
+      const int tmp = idx[k];
+      idx[k] = idx[k - 1];
+      idx[k - 1] = tmp;
+    }
+  cuuint64_t gdim[5] = {(cuuint64_t)D, 1, 1, 1, 1}, gstr[4];
+  const int C = D < 64 ? D : 64;
+  cuuint32_t box[5] = {(cuuint32_t)C, 1, 1, 1, 1}, es[5] = {1, 1, 1, 1, 1};
+  for (int k = 0; k < 4; ++k) {
+    const int i = idx[k];
+    gdim[k + 1] = (cuuint64_t)ext[i];
+    gstr[k] = (cuuint64_t)(ext[i] == 1 ? big : 2 * str[i]);
+    box[k + 1] = i == 0 ? TMA_ROWS : 1;
+    ord[k] = i;
+  }
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), gdim,
+                         gstr, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         C == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : C == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A contiguous bf16 input (batch, rows, heads, D) as a TMA map whose one box
+// is a whole 64-row canonical tile of one head: dims (C = min(D, 64)
+// columns, row, sub-tile, head, batch), box (C, TMA_ROWS, D / C, 1, 1), so
+// that the box's sub-tiles land TMA_ROWS x C apart, as Sw lays them out.
+static inline int make_tile_map(CUtensorMap* map, const void* base, int D, int64_t rows,
+                                int64_t heads, int64_t batch) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const int C = D < 64 ? D : 64;
+  cuuint64_t gdim[5] = {(cuuint64_t)C, (cuuint64_t)rows, (cuuint64_t)(D / C), (cuuint64_t)heads,
+                        (cuuint64_t)batch};
+  cuuint64_t gstr[4] = {(cuuint64_t)(2 * heads * D), (cuuint64_t)(2 * C), (cuuint64_t)(2 * D),
+                        (cuuint64_t)(2 * rows * heads * D)};
+  cuuint32_t box[5] = {(cuuint32_t)C, TMA_ROWS, (cuuint32_t)(D / C), 1, 1};
+  cuuint32_t es[5] = {1, 1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), gdim,
+                         gstr, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         C == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : C == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace hop

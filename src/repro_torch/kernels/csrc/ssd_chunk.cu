@@ -147,6 +147,7 @@ namespace ssd {
 using fa::bf16;
 using fa::NT;                 // 256 threads: 16 (ty) x 16 (tx)
 constexpr int BT = 64;        // rows of a tile (row and column tiles alike)
+static_assert(BT == hop::TMA_ROWS, "a TMA box fills one row tile");
 constexpr int LDA = BT + 16;  // row stride of the score tile (as flash's sP)
 constexpr int QMAX = 256;
 
@@ -1748,66 +1749,12 @@ __global__ void bwd_final_kernel(BwdArgs p, const float* __restrict__ pvec, int6
   if (lane == 0) p.pda[bch] = da;
 }
 
-// cuTensorMapEncodeTiled of libcuda, reached through the runtime's entry-point
-// query (the library links nothing new).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                         &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
 // The TMA map of a bf16 input (batch, chunk, row, head or group, D) with
-// strides `s` (elements: batch, chunk, row, head; D contiguous): dim 0 the D
-// columns, then the other four by stride, a dim of extent 1 last; boxes of
-// min(D, 64) columns x 64 rows, swizzled (one sub-tile of a canonical tile;
-// rows past Q read as zeros).
-// `ord[k]` gets which of (row, head, chunk, batch) dim k + 1 is.
+// strides `s` (elements: batch, chunk, row, head; D contiguous): hop::make_map
+// over (row, head, chunk, batch).
 static int make_map(CUtensorMap* map, int* ord, const void* base, const int64_t* s, int D, int Q,
                     int heads, int nc, int Bt) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const int64_t ext[4] = {Q, heads, nc, Bt};
-  const int64_t str[4] = {s[2], s[3], s[1], s[0]};
-  int64_t key[4], big = 16;
-  for (int i = 0; i < 4; ++i) {
-    key[i] = ext[i] == 1 ? INT64_MAX : str[i];
-    if (ext[i] > 1 && 2 * str[i] > big) big = 2 * str[i];
-  }
-  int idx[4] = {0, 1, 2, 3};
-  for (int i = 1; i < 4; ++i)
-    for (int k = i; k > 0 && key[idx[k]] < key[idx[k - 1]]; --k) {
-      const int tmp = idx[k];
-      idx[k] = idx[k - 1];
-      idx[k - 1] = tmp;
-    }
-  cuuint64_t gdim[5] = {(cuuint64_t)D, 1, 1, 1, 1}, gstr[4];
-  const int C = D < 64 ? D : 64;
-  cuuint32_t box[5] = {(cuuint32_t)C, 1, 1, 1, 1}, es[5] = {1, 1, 1, 1, 1};
-  for (int k = 0; k < 4; ++k) {
-    const int i = idx[k];
-    gdim[k + 1] = (cuuint64_t)ext[i];
-    gstr[k] = (cuuint64_t)(ext[i] == 1 ? big : 2 * str[i]);
-    box[k + 1] = i == 0 ? BT : 1;
-    ord[k] = i;
-  }
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), gdim,
-                         gstr, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         C == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : C == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return hop::make_map(map, ord, base, D, {Q, heads, nc, Bt}, {s[2], s[3], s[1], s[0]});
 }
 
 // F<hp, N>::run(a...) for the head dims and state sizes the kernels are

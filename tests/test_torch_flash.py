@@ -142,14 +142,15 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
 
 
 def tc_arithmetic(q, k, v, do, causal, window):
-    """The arithmetic of the bf16 tensor-core kernels (``flash_fwd_tc_kernel``,
-    ``flash_dq_tc_kernel``, ``flash_dkv_tc_kernel``) in plain PyTorch: fp32
-    products of the bf16 inputs, with ``p`` (forward and dk/dv) and ``ds`` (dq
-    and dk/dv) rounded to bf16 before they meet ``v``, ``do``, ``k`` and
-    ``q``; the row sum ``l`` and ``ds`` are formed from the fp32 ``p``, and
-    ``ds`` from the fp32 ``dp``.  Returns o, lse, dq, dk, dv (dk/dv summed
-    over the GQA group); the backward uses this o and lse, as training
-    does."""
+    """The arithmetic of the bf16 tensor-core kernels (``flash_fwd_tc_kernel``
+    on ``mma.sync``, ``flash_dq_wg_kernel`` and ``flash_dkv_wg_kernel`` on
+    ``wgmma``) in plain PyTorch: fp32 products of the bf16 inputs, with ``p``
+    (forward and dk/dv) and ``ds`` (dq and dk/dv) rounded to bf16 before they
+    meet ``v``, ``do``, ``k`` and ``q`` (in registers, or at hd 256 in shared
+    memory: the same rounding); the row sum ``l`` and ``ds`` are formed from
+    the fp32 ``p``, and ``ds`` from the fp32 ``dp``.  Returns o, lse, dq, dk,
+    dv (dk/dv summed over the GQA group); the backward uses this o and lse,
+    as training does."""
     B, S, H, hd = q.shape
     T, Kv = k.shape[1], k.shape[2]
     G, scale = H // Kv, hd ** -0.5
@@ -174,17 +175,29 @@ def tc_arithmetic(q, k, v, do, causal, window):
     return o, lse.reshape(B, H, S), dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-@pytest.mark.parametrize("window", [None, 16])
-def test_tensor_core_rounding_fits_the_bf16_tolerance(window):
+#: (window, head dim): hd 32 as ever, and the head dims of the main path's
+#: models: LM-100M's 64, olmoe-1b-7b's 128, gemma3-1b's 256 (where the
+#: backward kernels split their columns over two warpgroups)
+ROUNDING_CASES = [(window, hd) for hd in (32, 64, 128, 256) for window in (None, 16)]
+
+
+@pytest.mark.parametrize("window,hd", ROUNDING_CASES, ids=[
+    f"{w}" if hd == 32 else f"hd{hd}-{w}" for w, hd in ROUNDING_CASES])
+def test_tensor_core_rounding_fits_the_bf16_tolerance(window, hd):
     """The arithmetic stated in ``tc_arithmetic`` (p and ds rounded to bf16
     before the second products, which the card's bf16 kernels do and the fp32
     path does not) stays within the tolerances the card holds those kernels
     to (2e-2 elementwise, ``ROW_RTOL`` a row) of the Pallas kernels run in
     interpret mode on the same bf16 inputs: o and lse, and dq, dk, dv against
-    ``jax.vjp`` of the reference.  It checks that statement of the
-    rounding, not the port's code: the kernels themselves are held to the
-    same tolerances by chip_smoke.py on the card."""
-    B, S, T, H, Kv, hd = 1, 128, 256, 4, 2, 32
+    ``jax.vjp`` of the reference, at each head dim the main path runs.  A row
+    is held, as chip_smoke.py holds the kernels' rows, to the fp32 arithmetic
+    of the same bf16 inputs rounded once to bf16 (autograd of the dense
+    oracle): the Pallas kernel rounds elsewhere, and two roundings of a row
+    whose terms cancel (dk of a key only the diagonal query sees) can differ
+    by more than ``ROW_RTOL`` where each is within it.  It checks that
+    statement of the rounding, not the port's code: the kernels themselves are
+    held to the same tolerances by chip_smoke.py on the card."""
+    B, S, T, H, Kv = 1, 128, 256, 4, 2
     tol = TOL["bfloat16"]
     (jq, jk, jv, jdo), (q, k, v, do) = inputs(8, B, S, T, H, Kv, hd, "bfloat16")
     o, lse, dq, dk, dv = tc_arithmetic(q, k, v, do, True, window)
@@ -196,8 +209,11 @@ def test_tensor_core_rounding_fits_the_bf16_tolerance(window):
     np.testing.assert_allclose(f32(lse).reshape(B * H, S), f32(lse_ref), atol=2e-5, rtol=2e-5)
     for a, b in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         np.testing.assert_allclose(f32(a), f32(b), atol=tol, rtol=tol)
-    for a, b in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
-        a, b = f32(a).reshape(-1, hd), f32(b).reshape(-1, hd)
+    qf, kf, vf = (t.float().requires_grad_(True) for t in (q, k, v))
+    o_ex = ref.flash_attention_ref(qf, kf, vf, True, window)
+    exact = [o_ex, *torch.autograd.grad(o_ex, (qf, kf, vf), do.float())]
+    for a, b in zip((o, dq, dk, dv), exact, strict=True):
+        a, b = f32(a).reshape(-1, hd), f32(b.detach().to(q.dtype)).reshape(-1, hd)
         err = np.linalg.norm(a - b, axis=-1)
         assert np.all(err <= ROW_RTOL * np.linalg.norm(b, axis=-1)), err.max()
 
