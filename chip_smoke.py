@@ -248,19 +248,32 @@ SERVE_MLA_LAYERS = 31
 WG_PATH = ("wgmma.mma_async m64nNk16 bf16 x bf16 -> fp32 (tensor cores; the score tiles "
            "as register A operands), TMA tile copies into mbarrier rings, issued by a "
            "thread of each of the block's two warpgroups")
+#: the SSD forward's bf16 kernel: a block holds a group's B and C for a slice
+#: of its heads and forms the scores once for them
+SSD_FWD_WG_PATH = ("wgmma.mma_async m64nNk16 bf16 x bf16 -> fp32 (tensor cores; a block a "
+                   "slice of a group's heads and a role: the states, or y of one row tile "
+                   "with the scores C·Bᵀ formed once for the slice and held in fp32 "
+                   "registers), TMA tile copies into mbarrier rings, issued by a thread of "
+                   "each of the block's two warpgroups")
+#: the flash forward's bf16 kernel
+FLASH_FWD_WG_PATH = ("wgmma.mma_async m64nNk16 bf16 x bf16 -> fp32 (tensor cores) in "
+                     "warpgroups of 64 query rows, three a block up to hd 128 and two at hd "
+                     "256: s = q·kᵀ of the next key tile issued with "
+                     "p·v of this one, the online softmax while p·v is in flight, p as the "
+                     "register A operand; TMA copies (one box a 64-row tile) into a K ring of "
+                     "three and a V ring of two, each refill issued by the last warpgroup done "
+                     "with the stage")
 #: the flash backward's bf16 kernels
 FLASH_WG_PATH = ("wgmma.mma_async m64nNk16 bf16 x bf16 -> fp32 (tensor cores) in two "
                  "warpgroups: a warpgroup's rows of the score tile as the register A operand "
                  "(dq at hd <= 64, dk/dv at hd <= 128), else the output's columns split over "
                  "the warpgroups and the score tile through shared memory; TMA copies (one box "
                  "a 64-row tile) into an mbarrier ring, issued by thread 0")
-TC_PATH = ("mma.sync.aligned.m16n8k16 bf16 x bf16 -> fp32 (tensor cores), ldmatrix, "
-           "cp.async two-stage ring")
 KERNELS = {
     "flash_fwd": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
                   "replaces": "src/repro/kernels/flash_attention.py:100",
-                  "bf16_path": "flash_fwd_tc_kernel: " + TC_PATH},
+                  "bf16_path": "flash_fwd_wg_kernel: " + FLASH_FWD_WG_PATH},
     "flash_dq": {"route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_dq.cu",
                  "replaces": "src/repro/kernels/flash_attention.py:209",
@@ -283,7 +296,7 @@ KERNELS = {
     "ssd_chunk": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
                   "replaces": "src/repro/kernels/ssd_chunk.py:62",
-                  "bf16_path": "ssd_chunk_tc_kernel: " + TC_PATH},
+                  "bf16_path": "ssd_chunk_wg_kernel: " + SSD_FWD_WG_PATH},
     "ssd_chunk_bwd": {"route": "cuda",
                       "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
                       "replaces": "autograd of the plain version; the TPU kernel "
@@ -293,14 +306,13 @@ KERNELS = {
                                    "and da, in a fixed order"},
 }
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
-#: the kernels whose bf16 inputs run on the tensor cores: (device kernel of
-#: bf16, device kernel of fp32, instantiations in the library) — one per head
-#: dim for flash, one per (hp, N) for the SSD chunk and its backward
+#: the kernels whose bf16 inputs run on the tensor cores (all on wgmma): (device
+#: kernel of bf16, device kernel of fp32, instantiations in the library) — one
+#: per head dim for flash, one per (hp, N) for the SSD chunk and its backward
 TENSOR_CORE = {
-    "flash_fwd": ("fa::flash_fwd_tc_kernel<", "fa::flash_fwd_kernel<", len(fa.HEAD_DIMS)),
     **{name: (f"fa::{name}_wg_kernel<", f"fa::{name}_kernel<", len(fa.HEAD_DIMS))
-       for name in ("flash_dq", "flash_dkv")},
-    "ssd_chunk": ("ssd::ssd_chunk_tc_kernel<", "ssd::ssd_chunk_kernel<",
+       for name in FLASH},
+    "ssd_chunk": ("ssd::ssd_chunk_wg_kernel<", "ssd::ssd_chunk_kernel<",
                   len(sc.HEAD_DIMS) * len(sc.STATE_DIMS)),
     "ssd_chunk_bwd": ("ssd::ssd_chunk_bwd_wg_kernel<", "ssd::ssd_chunk_bwd_kernel<",
                       len(sc.HEAD_DIMS) * len(sc.STATE_DIMS)),
@@ -394,21 +406,50 @@ def phase_build(widths) -> None:
         for prefix, count in prefixes.items():
             expect_no_spills(prefix, [k for k in info["ptxas"][name]
                                       if k["kernel"].startswith(prefix)], count)
-    emit("build_sass", **{f"{name}_hgmma": wgmma_instructions(info["paths"], name)
-                          for name in WGMMA})
+    # what ptxas said of each bf16 kernel's wgmma products; none may be
+    # serialized but in the kernels of SERIALIZED_KNOWN
+    notes = {name: {k["kernel"]: k["wgmma_notes"] for k in info["ptxas"][build.ENTRY_POINTS[name]]
+                    if TENSOR_CORE[name][0].split("::")[1].rstrip("<") in k["kernel"]
+                    and k.get("wgmma_notes")} for name in TENSOR_CORE}
+    serialized = {name: kernels for name, kernels in notes.items() if name not in SERIALIZED_KNOWN
+                  and any("serialized" in n for ns in kernels.values() for n in ns)}
+    if serialized:
+        raise AssertionError(f"ptxas serialized wgmma products: {serialized}")
+    sass = library_sass(info["paths"])
+    emit("build_sass", **{f"{name}_hgmma": wgmma_instructions(sass, name)
+                          for name in TENSOR_CORE},
+         wgmma_notes={name: {"kernels": len(kernels),
+                             "codes": dict(Counter(n.split(")")[0].split("(")[-1]
+                                                   for ns in kernels.values() for n in ns))}
+                      for name, kernels in notes.items() if kernels})
 
 
-#: the entry points whose bf16 kernel runs its products on wgmma
-WGMMA = ("flash_dq", "flash_dkv", "ssd_chunk_bwd")
+#: bf16 kernels whose products ptxas is known to serialize (C7520 in every
+#: instantiation of the SSD backward's main kernel: a wait it inserts on a
+#: path it takes as divergent; ROADMAP B2), reported in the build_sass line
+#: and not failed on
+SERIALIZED_KNOWN = ("ssd_chunk_bwd",)
 
 
-def wgmma_instructions(paths, name) -> dict[str, int]:
-    """``name``'s bf16 kernel runs its products on wgmma: ``HGMMA``
-    instructions in the SASS of each instantiation of it (``cuobjdump -sass``
-    of the built library); raises where one has none."""
+def library_sass(paths) -> dict[str, str]:
+    """``cuobjdump -sass`` of each library that holds a tensor-core kernel,
+    the dumps run side by side: library name -> SASS."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(paths[build.ENTRY_POINTS[name]])],
-                          capture_output=True, text=True, check=True).stdout
+    libs = sorted({build.ENTRY_POINTS[name] for name in TENSOR_CORE})
+    procs = {lib: subprocess.Popen([cuobjdump, "-sass", str(paths[lib])],
+                                   stdout=subprocess.PIPE, text=True) for lib in libs}
+    out = {lib: proc.communicate()[0] for lib, proc in procs.items()}
+    bad = [lib for lib, proc in procs.items() if proc.returncode]
+    if bad:
+        raise RuntimeError(f"cuobjdump failed for {bad}")
+    return out
+
+
+def wgmma_instructions(sass, name) -> dict[str, int]:
+    """``name``'s bf16 kernel runs its products on wgmma: ``HGMMA``
+    instructions in the SASS of each instantiation of it (``sass``: the
+    libraries' by ``library_sass``); raises where one has none."""
+    sass = sass[build.ENTRY_POINTS[name]]
     kernel, _, count = TENSOR_CORE[name]
     bare = kernel.split("::")[1].rstrip("<")
     counts = {}
@@ -518,11 +559,13 @@ def check_case(case, dtype, tol_fwd, tol_grad, seed, library=False, faults=False
     if faults:
         errs["planted_faults"] = planted_faults(case, q, k, v, do, o_p, lse_p, delta, dq_p,
                                                 dk_p, dv_p)
-        # the backward kernels sum in a fixed order: a second call is the first bit for bit
+        # the kernels sum in a fixed order: a second call is the first bit for bit
+        o2, lse2 = fa.flash_fwd_cuda(q, k, v, causal, window)
         dq2 = fa.flash_dq_cuda(q, k, v, do, lse_p, delta, causal, window)
         dk2, dv2 = fa.flash_dkv_cuda(q, k, v, do, lse_p, delta, causal, window)
         torch.cuda.synchronize()
-        errs["repeat_bit_for_bit"] = {"flash_dq": torch.equal(dq, dq2),
+        errs["repeat_bit_for_bit"] = {"flash_fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
+                                      "flash_dq": torch.equal(dq, dq2),
                                       "flash_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
         if not all(errs["repeat_bit_for_bit"].values()):
             raise AssertionError(f"two calls differ at {case}: {errs['repeat_bit_for_bit']}")
@@ -530,12 +573,13 @@ def check_case(case, dtype, tol_fwd, tol_grad, seed, library=False, faults=False
 
 
 def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dq_p, dk_p, dv_p) -> dict:
-    """What the bf16 checks read on six faults a kernel could have, each
+    """What the bf16 checks read on seven faults a kernel could have, each
     built in fp32 from the plain formulas at ``case`` and rounded as the
     kernel rounds its output: the forward dropping the last key tile (the
-    tensor-core kernel's tile: 32 keys at hd 256, 64 below) of the last query
-    tile of batch 0; the forward not rescaling its output accumulator when the row
-    max grows (the same rows); dq dropping the last visible key tile (64 keys,
+    kernel's tile: 64 keys) of the last query tile of batch 0, and of the 64
+    rows from the middle of the last batch (a diagonal tile under causality);
+    the forward not rescaling its output accumulator when the row max grows
+    (the last 64 rows of batch 0); dq dropping the last visible key tile (64 keys,
     its kernel's tile) of the same rows, and of the 64 rows from the middle of
     the last batch (a diagonal tile under causality); dk/dv dropping the first
     query tile (64 rows) that sees the key block in the middle of batch 0, kv
@@ -543,24 +587,33 @@ def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dq_p, dk_p, dv_p) -> di
     its sum.  Each must read above its tolerance, so that the check at this
     shape can fail a wrong kernel."""
     B, S, T, H, Kv, hd, causal, window = case
-    G, scale, bn = H // Kv, fa._scale(hd, None), 32 if hd >= 256 else 64
+    G, scale, bn = H // Kv, fa._scale(hd, None), 64
     mask = fa.attention_mask(S, T, causal, window, q.device)
     f32 = lambda t: t.float()
 
+    def fwd_tile_dropped(bi, r0):
+        """o and lse of rows [r0, r0 + 64) of batch bi, every head, without
+        the last 64-key tile the last of them sees; and s, v, the mask."""
+        vis = mask[r0:r0 + 64]
+        qb = f32(q[bi, r0:r0 + 64]).transpose(0, 1)
+        kh = f32(k[bi]).repeat_interleave(G, dim=1).transpose(0, 1)
+        vh = f32(v[bi]).repeat_interleave(G, dim=1).transpose(0, 1)
+        s = qb @ kh.transpose(1, 2) * scale
+        last = (int(vis[-1].nonzero().max()) // bn) * bn
+        dropped = vis.clone()
+        dropped[:, last:last + bn] = False
+        sd = torch.where(dropped, s, fa.NEG_INF)
+        o_drop = torch.softmax(sd, dim=-1) @ vh
+        o_want = o_p[bi, r0:r0 + 64].transpose(0, 1)
+        return ({"o_row_rel": row_rel_err(o_drop.to(o_p.dtype), o_want),
+                 "lse_abs": max_err(torch.logsumexp(sd, dim=-1), lse_p[bi, :, r0:r0 + 64])},
+                s, vh, vis, o_want)
+
     # forward, rows [S - 64, S) of batch 0, every head: s (H, 64, T)
-    r0, vis = S - 64, mask[S - 64:]
-    qb = f32(q[0, r0:]).transpose(0, 1)
-    kh = f32(k[0]).repeat_interleave(G, dim=1).transpose(0, 1)
-    vh = f32(v[0]).repeat_interleave(G, dim=1).transpose(0, 1)
-    s = qb @ kh.transpose(1, 2) * scale
-    last = (int(vis[-1].nonzero().max()) // bn) * bn
-    dropped = vis.clone()
-    dropped[:, last:last + bn] = False
-    sd = torch.where(dropped, s, fa.NEG_INF)
-    o_drop = torch.softmax(sd, dim=-1) @ vh
+    dropped, s, vh, vis, o_want = fwd_tile_dropped(0, S - 64)
     m = torch.full(s.shape[:2], fa.NEG_INF, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros_like(qb)
+    acc = torch.zeros(*s.shape[:2], hd, device=q.device)
     for j in range(0, T, bn):
         sj, mj = s[..., j:j + bn], vis[:, j:j + bn]
         m_new = torch.maximum(m, torch.where(mj, sj, fa.NEG_INF).max(dim=-1).values)
@@ -568,10 +621,9 @@ def planted_faults(case, q, k, v, do, o_p, lse_p, delta, dq_p, dk_p, dv_p) -> di
         l = l * torch.exp(m - m_new) + pj.sum(dim=-1)
         acc = acc + pj @ vh[:, j:j + bn]          # the fault: acc not rescaled
         m = m_new
-    o_want = o_p[0, r0:].transpose(0, 1)
-    out = {"fwd_last_key_tile_dropped": {
-               "o_row_rel": row_rel_err(o_drop.to(o_p.dtype), o_want),
-               "lse_abs": max_err(torch.logsumexp(sd, dim=-1), lse_p[0, :, r0:])},
+    out = {"fwd_last_key_tile_dropped": dropped,
+           "fwd_last_key_tile_dropped_mid_rows": fwd_tile_dropped(B - 1,
+                                                                  (S // 2 // 64) * 64)[0],
            "fwd_output_not_rescaled": {
                "o_row_rel": row_rel_err((acc / l[..., None]).to(o_p.dtype), o_want)}}
 
@@ -693,8 +745,8 @@ def time_case(case, dtype, reps, split=False) -> dict:
     """ms of each kernel, of its plain version and of the library call
     (``F.scaled_dot_product_attention`` forward / autograd backward; a
     yardstick only — the port never calls it); with ``split``, also each
-    backward call by device kernel (``split_ms``: at LM-100M's shape the
-    calls are too short for the device profiler, which then records none)."""
+    call by device kernel (``split_ms``: at LM-100M's shape the calls are
+    too short for the device profiler, which then records none)."""
     B, S, T, H, Kv, hd, causal, window = case
     q, k, v, do = make_inputs(7, B, S, T, H, Kv, hd, dtype)
     o, lse = fa.flash_fwd_cuda(q, k, v, causal, window)
@@ -726,9 +778,10 @@ def time_case(case, dtype, reps, split=False) -> dict:
     out = {name: {"ms": ms[name], "plain_ms": plain[name], "library_ms": lib[name],
                   "bound_ms": bnd[name]["bound_ms"], "bound_by": bnd[name]["bound_by"]}
            for name in FLASH}
-    # the backward calls by device kernel, and what of ``ms`` no kernel took
-    # (the wrapper's host time, the TMA maps' encoding among it)
-    for name, fn in (("flash_dq", lambda: fa.flash_dq_cuda(*bw)),
+    # each call by device kernel, and what of ``ms`` no kernel took (the
+    # wrapper's host time, the TMA maps' encoding among it)
+    for name, fn in (("flash_fwd", lambda: fa.flash_fwd_cuda(q, k, v, causal, window)),
+                     ("flash_dq", lambda: fa.flash_dq_cuda(*bw)),
                      ("flash_dkv", lambda: fa.flash_dkv_cuda(*bw))) if split else ():
         split = device_split(fn, 5)
         split["no kernel"] = ms[name] - sum(split.values())
@@ -757,15 +810,16 @@ def tc_grid(name, dims) -> dict:
     ``<name>_grid`` entry point: blocks, resident blocks an SM (the occupancy
     calculator), threads and dynamic shared memory a block.  ``dims``: a flash
     case, or the SSD chunk's (Bt, nc, Q, H, hp, G, N) (forward or backward:
-    the backward's main kernel, a slice of heads as ``ssd_bwd_geometry``
-    cuts them)."""
+    the backward's main kernel, a slice of heads as ``ssd_fwd_geometry`` and
+    ``ssd_bwd_geometry`` cut them)."""
     if name == "ssd_chunk_bwd":
         Bt, nc, Q, H, hp, G, N = dims
         R = sc.ssd_bwd_geometry(Bt, nc, Q, H, G, hp, N)["slice_heads"]
         args = (Bt, nc, Q, H, G, hp, N, R)
     elif name == "ssd_chunk":
-        Bt, nc, _, H, hp, _, N = dims
-        args = (Bt, nc, H, hp, N)
+        Bt, nc, Q, H, hp, G, N = dims
+        R = sc.ssd_fwd_geometry(Bt, nc, Q, H, G, hp, N)["slice_heads"]
+        args = (Bt, nc, Q, H, G, hp, N, R)
     else:
         B, S, T, H, Kv, hd, _, _ = dims
         args = (B, T, Kv, hd) if name == "flash_dkv" else (B, S, H, hd)
@@ -1312,7 +1366,8 @@ def check_ssd(args, tol, what, faults=False) -> dict:
     atol 10·tol and rtol tol, cum within tol (tests/test_kernels.py's); in
     bf16 also y and states a row (over hp) within ``BF16_ROW_RTOL``, returned
     under ``"row_rel"``: an absolute 0.2 on y cannot fail a wrong tile.
-    With ``faults``, what the row checks read on planted faults."""
+    With ``faults``, what the row checks read on planted faults, and a
+    second call, which must be the first bit for bit."""
     got = sc.ssd_chunk_cuda(*args)
     want = sc.ssd_chunk_plain(*args)
     torch.cuda.synchronize()
@@ -1328,16 +1383,23 @@ def check_ssd(args, tol, what, faults=False) -> dict:
                                  f"{BF16_ROW_RTOL})")
     if faults:
         out["planted_faults"] = ssd_planted_faults(args, want, what)
+        again = sc.ssd_chunk_cuda(*args)
+        torch.cuda.synchronize()
+        out["repeat_bit_for_bit"] = all(torch.equal(u, v) for u, v in zip(got, again))
+        if not out["repeat_bit_for_bit"]:
+            raise AssertionError(f"two calls of ssd_chunk differ at {what}")
     return out
 
 
 def ssd_planted_faults(args, want, what) -> dict:
-    """What the bf16 row checks read on two faults the SSD kernel could have,
-    built in fp32 from the plain formulas for batch 0, chunk 0, every head,
-    and rounded as the kernel rounds: y without the diagonal 64 x 64 tile of
-    the last row tile, and states without the last row tile's (64 rows)
-    share of the sum — the rows with the least decay, so the largest share.
-    Each must read above the tolerance."""
+    """What the bf16 row checks read on three faults the SSD kernel could
+    have, built in fp32 from the plain formulas for batch 0, chunk 0, and
+    rounded as the kernel rounds: y without the diagonal 64 x 64 tile of the
+    last row tile (every head), states without the last row tile's (64 rows)
+    share of the sum — the rows with the least decay, so the largest share —
+    (every head), and y and states of head 1 with its neighbour head 0's cum
+    (a block's heads share one slice's vectors' buffers).  Each must read
+    above the tolerance."""
     x, dt, b, c, a = args
     Q, H = x.shape[2], x.shape[3]
     rep = H // b.shape[3]
@@ -1355,10 +1417,23 @@ def ssd_planted_faults(args, want, what) -> dict:
     w = torch.exp(cum[-1] - cum[rows]) * dtf[rows]                  # (r,H)
     st_tile = torch.einsum("jhn,jhp->hnp", bh * w[..., None], xf)
     st_want = want[1][0, 0]
+    # head 1 with head 0's cum: L and the states' weights of the wrong decay
+    full = torch.arange(Q, device=x.device)
+    x1, dt1 = x[0, 0, :, 1].float(), dt[0, 0, :, 1]
+    b1, c1 = b[0, 0, :, 1 // rep].float(), c[0, 0, :, 1 // rep].float()
+    cum0 = cum[:, 0]
+    seg0 = torch.where(full[:, None] >= full[None, :], cum0[:, None] - cum0[None, :],
+                       float("-inf"))
+    y_swap = ((c1 @ b1.T) * torch.exp(seg0)) @ (x1 * dt1[:, None])
+    st_swap = (b1 * (torch.exp(cum0[-1] - cum0) * dt1)[:, None]).T @ x1
+    y1_want, st1_want = want[0][0, 0, :, 1], want[1][0, 0, 1]
     out = {"ssd_y_diagonal_tile_dropped": {
                "y_row_rel": row_rel_err((y_want.float() - y_diag).to(x.dtype), y_want)},
            "ssd_states_last_row_tile_dropped": {
-               "states_row_rel": row_rel_err(st_want - st_tile, st_want)}}
+               "states_row_rel": row_rel_err(st_want - st_tile, st_want)},
+           "ssd_head_given_neighbours_cum": {
+               "y_row_rel": row_rel_err(y_swap.to(x.dtype), y1_want),
+               "states_row_rel": row_rel_err(st_swap, st1_want)}}
     missed = {f"{fault}.{key}": v for fault, r in out.items() for key, v in r.items()
               if v <= BF16_ROW_RTOL}
     if missed:
@@ -1708,6 +1783,7 @@ def time_ssd(Bt, nc, Q, H, hp, G, N) -> dict:
     return {"max_abs_err": chk["max_abs_err"],
             "max_row_rel_err": max(chk["row_rel"].values()), "row_rel": chk["row_rel"],
             "tol_row_rel": BF16_ROW_RTOL, "planted_faults": chk["planted_faults"],
+            "repeat_bit_for_bit": chk["repeat_bit_for_bit"],
             "ms": time_ms(lambda: sc.ssd_chunk_cuda(*args), 5),
             "plain_ms": time_ms(lambda: sc.ssd_chunk_plain(*args), 2),
             "backward_plain_ms": backward_ms(sc.ssd_chunk_plain, args, 2),

@@ -1,9 +1,10 @@
 #!/usr/bin/env python
-"""Time the bf16 flash backward (``flash_dq_cuda``, ``flash_dkv_cuda``) from
-several source trees in one process tree on one GPU, to compare two versions
-of the kernels on the same card:
+"""Time the bf16 flash kernels, forward (``flash_fwd_cuda``) and backward
+(``flash_dq_cuda``, ``flash_dkv_cuda``), from several source trees in one
+process tree on one GPU, to compare two versions of the kernels on the same
+card:
 
-    python3 scripts/flash_bwd_ab.py TREE_A TREE_B     # each holds src/repro_torch
+    python3 scripts/flash_ab.py TREE_A TREE_B     # each holds src/repro_torch
 
 Shapes: gemma3-1b's global and 512-key window layers (B 4, S = T 4096, H 4,
 Kv 1, hd 256), olmoe-1b-7b's layer (H = Kv = 16, hd 128) and LM-100M's (B 4,
@@ -12,7 +13,8 @@ S = T 512, H 10, Kv 5, hd 64), all causal.  Each tree's kernels build into
 the order A, B, B, A: three means of 20 calls of each by CUDA events after a
 warm-up, each call's device time by kernel (torch.profiler, 10 calls), and
 its largest relative 2-norm error of a row against the plain version (rows
-held to at least 2^-8 of the median row's norm, as chip_smoke.py holds them).
+held to at least 2^-8 of the median row's norm, as chip_smoke.py holds them;
+o, dq, dk, dv), and the largest error of lse.
 Put the parent with ``git archive HEAD | tar -x -C DIR`` into a directory
 ``.gitignore`` lists.
 """
@@ -46,7 +48,8 @@ for tag, (B, S, T, H, Kv, hd, window) in SHAPES.items():
     delta = ops.attention_delta(o, do)
     bw = (q, k, v, do, lse, delta, True, window)
     res = {}
-    for name, f in (("flash_dq", lambda: fa.flash_dq_cuda(*bw)),
+    for name, f in (("flash_fwd", lambda: fa.flash_fwd_cuda(q, k, v, True, window)),
+                    ("flash_dq", lambda: fa.flash_dq_cuda(*bw)),
                     ("flash_dkv", lambda: fa.flash_dkv_cuda(*bw))):
         f(); torch.cuda.synchronize()
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -63,10 +66,12 @@ for tag, (B, S, T, H, Kv, hd, window) in SHAPES.items():
         kernel = sum(e.self_device_time_total for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 10
         res[name] = {"ms": ms, "kernel_ms": kernel}
-    got = (fa.flash_dq_cuda(*bw), *fa.flash_dkv_cuda(*bw))
-    want = (fa.flash_dq_plain(*bw), *fa.flash_dkv_plain(*bw))
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, True, window)
+    got = (o, fa.flash_dq_cuda(*bw), *fa.flash_dkv_cuda(*bw))
+    want = (o_p, fa.flash_dq_plain(*bw), *fa.flash_dkv_plain(*bw))
     res["row_rel"] = [row_rel(a, b) for a, b in zip(got, want)]
-    del got, want
+    res["lse_abs"] = float((lse - lse_p).abs().max())
+    del got, want, o_p, lse_p
     torch.cuda.empty_cache()
     out[tag] = res
 print(json.dumps(out))

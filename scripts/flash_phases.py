@@ -1,17 +1,17 @@
 #!/usr/bin/env python
-"""Where the bf16 flash backward kernels spend their time, without ncu:
+"""Where the bf16 flash kernels spend their time, without ncu:
 
-    python3 scripts/flash_bwd_phases.py
+    python3 scripts/flash_phases.py
 
-Copies ``src/repro_torch`` into ``build/flash_bwd_phases/`` and marks the
-phases of ``flash_dq_wg_kernel`` and ``flash_dkv_wg_kernel`` there (thread 0
-of each warpgroup adds the ``clock64`` cycles since the previous mark into a
-shared counter, and the block's counters into a device array at its end),
-builds the copy, runs one call of each at gemma3-1b's global layer (B 4,
-S = T 4096, H 4, Kv 1, hd 256: both kernels' "split" layout) and at
-olmoe-1b-7b's layer (H = Kv = 16, hd 128: dq's "split", dk/dv's "rows")
-after a warm-up, and prints each phase's cycles a block for each warpgroup
-and its share.
+Copies ``src/repro_torch`` into ``build/flash_phases/`` and marks the phases
+of ``flash_fwd_wg_kernel``, ``flash_dq_wg_kernel`` and ``flash_dkv_wg_kernel``
+there (thread 0 of each warpgroup adds the ``clock64`` cycles since the
+previous mark into a shared counter, and the block's counters into a device
+array at its end), builds the copy, runs one call of each at gemma3-1b's
+global layer (B 4, S = T 4096, H 4, Kv 1, hd 256: the backward's "split"
+layout), its 512-key window layer, and olmoe-1b-7b's layer (H = Kv = 16,
+hd 128: dq's "split", dk/dv's "rows") after a warm-up, and prints each
+phase's cycles a block for each warpgroup and its share.
 The marks cost some cycles of their own; the repository's kernels are not
 changed.
 """
@@ -26,11 +26,23 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-OUT = ROOT / "build" / "flash_bwd_phases"
+OUT = ROOT / "build" / "flash_phases"
 #: by source: (where, the statement, its occurrence, the phase that ends
 #: there): a mark goes after the statement, or before it (and before its loop
 #: header)
 MARKS = {
+    "flash_fwd": [
+        ("after", "hop::mbar_wait(q_full, 0);", 1, "start: barriers, Q in"),
+        ("after", "pack_p();", 1, "first tile: K wait, s, softmax, pack"),
+        ("after", "hop::mbar_wait(&v_full[it % VST], (it / VST) & 1);", 1, "loop: K, V waits"),
+        ("after", "pv_product(it);", 1, "loop: s and p·v issued"),
+        ("after", "hop::fence_regs(sc);", 2, "loop: wait for s"),
+        ("after", "softmax(j);", 1, "loop: softmax (p·v in flight)"),
+        ("after", "pack_p();", 2, "loop: wait for p·v, rescale o, pack p"),
+        ("after", "__syncwarp();", 2, "loop: barrier, the last warpgroup's refill"),
+        ("after", "for (int hh = 0; hh < NH; ++hh) hop::fence_regs(acc[hh]);", 1,
+         "last tile: V wait, p·v"),
+    ],
     "flash_dkv": [
         ("after", "hop::mbar_wait(kv_full, 0);", 1, "start: barriers, K and V in"),
         ("after", "const int s = it % ST, q0 = (qt_lo + it % nq) * BM;", 1,
@@ -80,10 +92,15 @@ MARKS = {
 }
 #: the line before which each kernel's counters go to device memory, and the
 #: first line of its body
-FLUSH = {"flash_dkv": "  // dk and dv of the warpgroup's keys and columns, rounded to bf16 once",
+FLUSH = {"flash_fwd": "  // lse = m·scale + log l; o = acc / l rounded to bf16 once",
+         "flash_dkv": "  // dk and dv of the warpgroup's keys and columns, rounded to bf16 once",
          "flash_dq": "  // dq of the warpgroup's rows and columns, rounded to bf16 once"}
-HEAD = {"flash_dkv": "  using C = DkvWg<D>;\n", "flash_dq": "  using C = DqWg<D>;\n"}
+#: warpgroups a block at most (the forward runs three up to hd 128)
+W = 3
+HEAD = {"flash_fwd": "  using C = FwdWg<D>;\n", "flash_dkv": "  using C = DkvWg<D>;\n",
+        "flash_dq": "  using C = DqWg<D>;\n"}
 SHAPES = {"gemma3-1b global": (4, 4096, 4096, 4, 1, 256, None),
+          "gemma3-1b window": (4, 4096, 4096, 4, 1, 256, 512),
           "olmoe-1b-7b": (4, 4096, 4096, 16, 16, 128, None)}
 
 
@@ -104,24 +121,24 @@ def instrument(name: str, src: str) -> str:
     for i, line in sorted(inserts, reverse=True):
         lines.insert(i, line)
     out, K = "\n".join(lines), len(marks)
-    out = out.replace(HEAD[name], HEAD[name] + f"  __shared__ long long phase_cycles[2][{K}];\n"
+    out = out.replace(HEAD[name], HEAD[name] + f"  __shared__ long long phase_cycles[{W}][{K}];\n"
                       "  long long phase_t0 = clock64();\n"
-                      f"  if (threadIdx.x < {2 * K}) (&phase_cycles[0][0])[threadIdx.x] = 0;\n", 1)
+                      f"  if (threadIdx.x < {W * K}) (&phase_cycles[0][0])[threadIdx.x] = 0;\n", 1)
     out = out.replace(FLUSH[name], f"  if (n_it > 0 && tid == 0) {{\n"
                       f"    for (int k = 0; k < {K}; ++k) atomicAdd(&g_phase_cycles[w][k], "
                       "(unsigned long long)phase_cycles[w][k]);\n"
                       "    if (w == 0) atomicAdd(&g_phase_blocks, 1ull);\n  }\n" + FLUSH[name], 1)
     out = out.replace("namespace fa {\n", "namespace fa {\n"
-                      f"__device__ unsigned long long g_phase_cycles[2][{K}];\n"
+                      f"__device__ unsigned long long g_phase_cycles[{W}][{K}];\n"
                       "__device__ unsigned long long g_phase_blocks;\n"
                       "#define PHASE_MARK(k) do { if (tid == 0) { const long long now = "
                       "clock64(); phase_cycles[w][k] += now - phase_t0; phase_t0 = now; } "
                       "} while (0)\n", 1)
     return out + f'''
 extern "C" int {name}_phase_cycles(unsigned long long* out) {{
-  cudaError_t e = cudaMemcpyFromSymbol(out, fa::g_phase_cycles, sizeof(unsigned long long) * {2 * K});
+  cudaError_t e = cudaMemcpyFromSymbol(out, fa::g_phase_cycles, sizeof(unsigned long long) * {W * K});
   if (e == cudaSuccess)
-    e = cudaMemcpyFromSymbol(out + {2 * K}, fa::g_phase_blocks, sizeof(unsigned long long));
+    e = cudaMemcpyFromSymbol(out + {W * K}, fa::g_phase_blocks, sizeof(unsigned long long));
   return (int)e;
 }}
 '''
@@ -150,20 +167,23 @@ def main() -> None:
         o, lse = fa.flash_fwd_cuda(q, k, v, True, window)
         delta = ops.attention_delta(o, do)
         bw = (q, k, v, do, lse, delta, True, window)
-        for name, fn in (("flash_dq", fa.flash_dq_cuda), ("flash_dkv", fa.flash_dkv_cuda)):
+        for name, fn, args in (("flash_fwd", fa.flash_fwd_cuda, (q, k, v, True, window)),
+                               ("flash_dq", fa.flash_dq_cuda, bw),
+                               ("flash_dkv", fa.flash_dkv_cuda, bw)):
             lib, K = build.load_library(name), len(MARKS[name])
-            counts = (ctypes.c_ulonglong * (2 * K + 1))()
-            fn(*bw)
+            counts = (ctypes.c_ulonglong * (W * K + 1))()
+            fn(*args)
             torch.cuda.synchronize()
             getattr(lib, f"{name}_phase_cycles")(counts)
             before = np.array(list(counts), dtype=np.float64)
-            fn(*bw)
+            fn(*args)
             torch.cuda.synchronize()
             if getattr(lib, f"{name}_phase_cycles")(counts) != 0:
                 raise SystemExit("reading the counters failed")
             diff = np.array(list(counts), dtype=np.float64) - before
             blocks = diff[-1]
-            cycles = diff[:-1].reshape(2, K) / blocks
+            cycles = diff[:-1].reshape(W, K) / blocks
+            cycles = cycles[cycles.sum(1) > 0]  # the warpgroups the kernel has
             total = cycles.sum(1)
             out[f"{tag} {name}"] = {
                 "blocks": int(blocks), "cycles_a_block": total.round(0).tolist(),

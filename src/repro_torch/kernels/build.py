@@ -114,14 +114,20 @@ def build_all() -> dict[str, Path]:
 
 def _ptxas_summary(log: str) -> list[dict]:
     """One entry per compiled kernel: registers, spill bytes, static shared
-    memory, as ``-Xptxas -v`` printed them."""
+    memory, as ``-Xptxas -v`` printed them, and under ``wgmma_notes`` what
+    ptxas said of its ``wgmma`` products (a product it serialized, a wait it
+    injected: C75xx), matched by the kernel's name in the line, else given to
+    the kernel being compiled."""
     import re
-    out, name = [], None
+    out, name, notes = [], None, []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
             out.append({"kernel": name})
+            continue
+        if re.search(r"\(C75\d\d\)|wgmma|warpgroup", line):
+            notes.append((len(out) - 1, line.strip()))
             continue
         if not out:
             continue
@@ -134,6 +140,10 @@ def _ptxas_summary(log: str) -> list[dict]:
             out[-1]["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", line)
             out[-1]["static_smem"] = int(sm.group(1)) if sm else 0
+    for at, note in notes:
+        named = [k for k in out if k["kernel"] in note] or (out[at:at + 1] if at >= 0 else [])
+        for k in named:
+            k.setdefault("wgmma_notes", []).append(note)
     return out
 
 

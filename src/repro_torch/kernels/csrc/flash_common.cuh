@@ -19,8 +19,7 @@
 // Inputs, shared tiles, products and sums are all fp32: IEEE fp32 FMAs, for
 // the fp32 parity of the plain versions.  The three flash kernels (and the
 // SSD chunk's) take this path for fp32 inputs only; their bf16 inputs go to
-// tensor-core kernels: the forward's on mma.sync (flash_mma.cuh), dq's and
-// dk/dv's on wgmma fed by TMA (flash_wg.cuh, hopper.cuh).
+// kernels on wgmma fed by TMA (flash_wg.cuh, hopper.cuh).
 // Rows are padded by 4 floats so that float4 reads of 8 neighbouring rows fall
 // into 8 different 16-byte bank groups.
 #pragma once

@@ -1,6 +1,7 @@
-// What the two bf16 flash-backward kernels on `wgmma` (flash_dq_wg_kernel,
-// flash_dkv_wg_kernel) share: the TMA maps of q, k, v and do, and the shared
-// memory base they align.
+// What the three bf16 flash kernels on `wgmma` (flash_fwd_wg_kernel,
+// flash_dq_wg_kernel, flash_dkv_wg_kernel) share: the TMA maps of q, k, v
+// and do, the shared memory base they align, the one-time setting of their
+// shared memory limit.
 #pragma once
 
 #include "flash_common.cuh"
@@ -10,6 +11,7 @@ namespace fa {
 
 // q and do (B, S, H, hd) and k and v (B, T, Kv, hd), contiguous, as TMA maps
 // whose one box is a 64-row canonical tile of one head (hop::make_tile_map).
+// The forward has no do: dout == nullptr leaves its map unencoded.
 struct FlashMaps {
   CUtensorMap q, k, v, dout;
 };
@@ -18,11 +20,25 @@ inline int flash_maps(FlashMaps* m, const void* q, const void* k, const void* v,
                       const void* dout, int B, int S, int T, int H, int Kv, int D) {
   int err;
   if ((err = hop::make_tile_map(&m->q, q, D, S, H, B)) ||
-      (err = hop::make_tile_map(&m->dout, dout, D, S, H, B)) ||
+      (dout != nullptr && (err = hop::make_tile_map(&m->dout, dout, D, S, H, B))) ||
       (err = hop::make_tile_map(&m->k, k, D, T, Kv, B)) ||
       (err = hop::make_tile_map(&m->v, v, D, T, Kv, B)))
     return err;
   return 0;
+}
+
+// The dynamic shared memory limit of `kernel`, set on the current device the
+// first time a launcher asks for it (`done`: the launcher's own flags, one a
+// device), so that a call's host work is its tensor maps and the launch.
+template <typename K>
+inline cudaError_t smem_limit_once(K kernel, size_t bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
 }
 
 // 64 rows of one head into a canonical tile, one box.

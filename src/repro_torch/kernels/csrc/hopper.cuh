@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the bf16 kernels that run on `wgmma`
-// (the SSD chunk's backward, ssd::ssd_chunk_bwd_wg_kernel, and the flash
-// backward, fa::flash_dq_wg_kernel and fa::flash_dkv_wg_kernel): warpgroup
+// Hopper (sm_90a) building blocks of the bf16 kernels, all on `wgmma` (the
+// SSD chunk's forward and backward, ssd::ssd_chunk_wg_kernel and
+// ssd::ssd_chunk_bwd_wg_kernel, and the flash forward and backward,
+// fa::flash_fwd_wg_kernel, fa::flash_dq_wg_kernel, fa::flash_dkv_wg_kernel): warpgroup
 // products (`wgmma`), tile copies by the Tensor Memory Accelerator (TMA), the
 // `mbarrier`s that report them, and on the host the TMA maps of the inputs
 // (make_map, make_tile_map, through encode_tiled: the one lookup of

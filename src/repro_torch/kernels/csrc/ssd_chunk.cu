@@ -18,55 +18,60 @@
 //
 // Shared by both kernels below: the TPU kernel holds the whole (Q,Q) decay and
 // score matrices in VMEM; in fp32 at Q = 256 they are 256 KB each, more than
-// an SM has (227 KB).  Here a block owns one chunk of one head and walks it in
-// 64-row tiles: for a row tile i it keeps C_i in shared memory and streams the
-// column tiles j <= i (tiles above the diagonal are never visited), forming
-// C_i B_j^T . L_ij for one 64 x 64 tile at a time and adding (tile) @ (x dt)_j
-// into y_i's registers.  exp is evaluated only where i >= j, so no exponent is
-// ever positive and nothing overflows.  The states are a sum over every
-// column tile of the chunk (the fp32 kernel takes it on the last row tile's
-// walk, the bf16 kernel on a walk of its own).  cum is a prefix sum over the
-// chunk inside the block (one warp).  The kernels read the model's
-// (batch, chunk, row, head) layout through strides, and B/C through a head ->
-// group index, so the model's tensors go in without a copy and B/C are not
-// repeated per head.  Rows past Q (a ragged last tile) are zeros.
+// an SM has (227 KB).  Here the chunk is walked in 64-row tiles: for a row
+// tile i only the column tiles j <= i are visited (tiles above the diagonal
+// never), forming C_i B_j^T . L_ij for one 64 x 64 tile at a time and adding
+// (tile) @ (x dt)_j into y_i's registers.  exp is evaluated only where
+// i >= j, so no exponent is ever positive and nothing overflows.  The states
+// are a sum over every column tile of the chunk.  The kernels read the
+// model's (batch, chunk, row, head) layout through strides, and B/C through a
+// head -> group index, so the model's tensors go in without a copy and B/C
+// are not repeated per head.  Rows past Q (a ragged last tile) are zeros.
 //
-// * bf16 -> ssd_chunk_tc_kernel, on the tensor cores.  A block of 4 warps,
-//   16 rows of the row tile each; C_i, B_j and x_j are bf16 tiles in shared
-//   memory (rows padded by 16 bytes), B_j and x_j streamed through a
-//   two-stage cp.async ring.  All three products are `mma.sync.m16n8k16`
-//   (bf16 operands by ldmatrix, fp32 accumulators):
-//     1. s = C_i·B_jᵀ (16 x 64 a warp, contraction N, in two halves of 32
-//        keys), A by `a_addr`, B_j by `bt_addr`; on the diagonal tile warp w
-//        forms only keys < 16 (w + 1);
-//     2. att = s · exp(cum_i − cum_j) · dt_j in fp32 registers, masked to
-//        i >= j, then rounded to bf16 — one rounding, as p in the flash
-//        kernels — and repacked from the C fragments into the A operand;
-//     3. y_i += att·x_j, x_j by `b_addr` + ldmatrix.trans, so x stays exact
-//        bf16 (dt sits in att);
-//     4. after all the pairs, a second walk over the column tiles (on the
-//        same ring) sums states += (B_j · w)ᵀ·x_j, w_r = exp(cum_Q − cum_r)·dt_r:
-//        Bᵀ is read as the A operand by `at_addr` + ldmatrix.trans and each
-//        of its bf16 pairs is multiplied by its rows' w in fp32 and rounded
-//        once; warp w owns the 16-row state tiles w, w + 4.
-//   y is rounded to bf16 once at the end; states and cum stay fp32.
-//   Registers: the states walk is separate from the pairs so that y's 32
-//   accumulators and the states' 64 (hp 64, N 128) are never live together;
-//   with the score tile formed in halves of 32 keys and the row copies not
-//   fully unrolled, ptxas needs 127 at (64, 128), at most 128 (launch bounds:
-//   3 blocks of 128 threads an SM).  Walking the states inside the last row tile's pairs
-//   instead saves 4 tile loads a block but needs 255 registers, 2 blocks an
-//   SM, and ran slower (PERF.md, findings).  Shared memory: C_i and two
-//   stages of B_j, x_j at (N + 8) and (hp + 8) bf16 a row, plus dt, cum and w
-//   for 256 rows: 73,728 bytes at hp 64, N 128, three blocks (12 warps) an SM.
-//   Distance from the bound (mamba2-1.3b's shape above, chip_smoke.py on an
-//   NVIDIA H100 80GB HBM3 at a 700 W power limit): 0.711 ms against 0.125 ms,
-//   18 % (the fp32-FMA path for bf16 took 2.97 ms).  What is left, inferred
-//   rather than measured: each warp reads all of B_j and x_j from shared
-//   memory for its 16 rows, and B_j, x_j come again from L2 for every row
-//   tile that sees them.
-//   cp.async copies 16 bytes, so x, B and C must start on 16-byte boundaries
-//   with every row stride a multiple of 8 elements (the wrapper checks it).
+// * bf16 -> ssd_chunk_wg_kernel, on `wgmma` fed by TMA (hopper.cuh).  A block
+//   owns (batch, chunk, group, slice of R heads, role): R consecutive heads
+//   of the group (ssd_chunk.py's ssd_fwd_geometry, as the backward's: the
+//   largest divisor of H / G up to 16; at mamba2's shape R = 16, 4 slices),
+//   and one of nt + 1 roles: the slice's states and cum (role 0), or y of
+//   one row tile t (role r: t = nt − r, the heaviest first); 1,280 blocks at
+//   mamba2's shape.  The block's B tiles (B_0..B_t, or all for the states)
+//   and a y block's C_t are copied once by TMA and held in shared memory for
+//   all its heads, so B and C cross device memory once a slice and role, not
+//   once a head.  Two warpgroups take the slice's heads alternately; each
+//   streams its heads' x tiles through its own mbarrier ring of 4 (one TMA
+//   box a 64-row tile, issued by the warpgroup's thread 0: no producer warp,
+//   see the backward's note), and forms a head's dt, cum (a scan over the
+//   warpgroup) and weights in shared memory while its next head's dt loads.
+//     - y block: s_j = C_t B_j^T (m64n64, contraction N, both operands from
+//       shared memory) for j <= t, formed once for the slice's heads and held
+//       in fp32 registers (four tiles, 128 a thread).  Per head and j,
+//       att = s_j · exp(cum_i − cum_j) · dt_j in fp32 registers: below the
+//       diagonal as exp(cum_i − cum_e) · (exp(cum_e − cum_j) · dt_j), e the
+//       last row of tile j (both exponents <= 0; one exponent a row and one a
+//       column instead of one an entry), on it one exponent an entry with the
+//       pairs i < j at -inf; att rounded to bf16 once into the register A
+//       operand (`fa::c_to_a`) of y += att·x_j, x_j read MN-major, so x stays
+//       exact bf16 (dt sits in att).  y is rounded to bf16 once at the end.
+//     - states block: states += (B_j w)^T x_j, w_r = exp(cum_{Q-1} − cum_r)
+//       · dt_r: B_j^T read as the register A operand by ldmatrix.trans from
+//       the swizzled tile, each bf16 pair times its rows' w in fp32 and
+//       rounded once; 64-row tiles of n (N = 128: two m64 products a step),
+//       x_j MN-major; fp32 out.  And cum, fp32.
+//   Every head's dt (16-byte loads along the heads where they are
+//   contiguous), cum and weights are formed once at the block's start.
+//   The roundings are those of the mma.sync kernel it replaced (PERF.md row 6;
+//   docs/torch_port.md).  Registers (ptxas): 201–234, no spill, no product
+//   serialized (five warpgroup.arrive that ptxas injects, C7519); shared
+//   memory 199,752 bytes at hp 64, N 128, one block an SM.
+//   Distance from the bound at mamba2's shape (chip_smoke.py, NVIDIA H100
+//   80GB HBM3 at a 700 W power limit): 0.33 ms of kernel against 0.125 ms,
+//   38 % (the mma.sync kernel: 0.68 ms).  What is left, from a clock64 count
+//   (scripts/ssd_phases.py): a y block's barrier and refill after each tile
+//   (28–30 %) and its elementwise att (22 %); each block's start, every head's
+//   vectors (a quarter of a y block); the states blocks, twice a y block's
+//   work, in the tail.  The TMA maps need x, B and C to start on 16-byte
+//   boundaries with every row stride a multiple of 8 elements (the wrapper
+//   checks it).
 // * fp32 -> ssd_chunk_kernel, IEEE fp32 FMAs from fp32 shared tiles (below),
 //   so fp32 inputs keep their 2e-5 parity with the plain version.
 //
@@ -118,7 +123,7 @@
 //   the exponent of a pair i < j is replaced by -inf before exp2 (L = 0, as
 //   the plain version's where), so no positive exponent is ever evaluated.
 //   Roundings: P, ds, w B_t, w dt x_t and dS to bf16 before their products,
-//   as ssd_chunk_tc_kernel's backward did (docs/torch_port.md).  s = B_t C_i^T
+//   as the mma.sync backward kernel did (docs/torch_port.md).  s = B_t C_i^T
 //   is still formed once a head: its fp32 tiles, held for the heads, would
 //   need 64 KB more than the 216 KB a block has.  Then bwd_reduce_kernel sums
 //   the slices in order into db, dc (b's dtype); bwd_final_kernel turns each
@@ -139,8 +144,7 @@
 //   fp32 gradients; dB and dC of each head go to fp32 partials (B·nc·H, Q, N)
 //   that bwd_reduce_kernel sums in head order, then bwd_da_kernel.
 #include "flash_common.cuh"
-#include "flash_mma.cuh"
-#include "hopper.cuh"
+#include "flash_wg.cuh"
 
 namespace ssd {
 
@@ -150,6 +154,9 @@ constexpr int BT = 64;        // rows of a tile (row and column tiles alike)
 static_assert(BT == hop::TMA_ROWS, "a TMA box fills one row tile");
 constexpr int LDA = BT + 16;  // row stride of the score tile (as flash's sP)
 constexpr int QMAX = 256;
+// heads of a slice at most (SLICE_HEADS in ssd_chunk.py): the bf16 kernels'
+// blocks each take a slice of a group's heads
+constexpr int SLICE_HEADS = 16;
 
 struct Args {
   const void* x;
@@ -359,36 +366,8 @@ struct Fma {
   }
 };
 
-// ---- bf16 on the tensor cores -------------------------------------------------
-
-template <int HP, int N>
-struct Tc {
-  static constexpr int NTH = 128;          // 4 warps, 16 rows of a row tile each
-  static constexpr int LDN = N + 8;        // shared row strides, bf16
-  static constexpr int LDX = HP + 8;
-  static constexpr size_t SMEM =
-      sizeof(bf16) * (3 * BT * LDN + 2 * BT * LDX) + sizeof(float) * 3 * QMAX;
-};
-
-// Rows [r0, r0 + BT) of a (Q, D) bf16 matrix into a shared tile with row
-// stride LD by cp.async, 16 bytes a thread; rows past Q are zeros.
-template <int D, int LD, int NTH>
-__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src, int64_t stride, int r0,
-                                        int Q) {
-  constexpr int V = D / 8;
-  // unrolled by 2, not fully: fully unrolled, ptxas keeps every row's address
-  // offsets live across the kernel's loops and the kernel needs > 168 registers
-#pragma unroll 2
-  for (int i = 0; i < BT * V / NTH; ++i) {
-    const int idx = threadIdx.x + i * NTH;
-    const int r = idx / V, col = (idx % V) * 8;
-    bf16* d = dst + r * LD + col;
-    if (r0 + r < Q)
-      fa::cp_async16(d, src + (int64_t)(r0 + r) * stride + col);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
+// ---- bf16: two warpgroups on wgmma, fed by TMA (the forward here, the
+// backward below) ------------------------------------------------------------------
 
 // A pair of bf16 times (lo, hi) in fp32, rounded back to a pair of bf16.
 __device__ __forceinline__ uint32_t scale_pair(uint32_t v, float lo, float hi) {
@@ -396,269 +375,422 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t v, float lo, float hi) {
   return fa::pack_bf16(f.x * lo, f.y * hi);
 }
 
-// grid (nc, H, batch); one block per chunk of one head.
+// Rows [64 tile, 64 tile + 64) of head (or group) hg of a D-wide input into
+// a canonical tile at dst: a box a sub-tile.
+template <int D>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, const int* ord,
+                                         int tile, int hg, int c, int bb, uint64_t* bar) {
+  const int logical[4] = {tile * BT, hg, c, bb};
+  const int c1 = logical[ord[0]], c2 = logical[ord[1]], c3 = logical[ord[2]],
+            c4 = logical[ord[3]];
+  constexpr int C = hop::Sw<D>::C;
+#pragma unroll
+  for (int s = 0; s < D / C; ++s)
+    hop::tma_load(dst + s * BT * C, map, bar, s * C, c1, c2, c3, c4);
+}
+
+// dt of rows 2 tid and 2 tid + 1 of one head's chunk (0 past Q): the
+// warpgroup's threads load the next head's while they work on this one.
+__device__ __forceinline__ void load_dt(float (&d)[2], const float* dtp, int64_t sdt, int Q,
+                                        int tid) {
+  d[0] = 2 * tid < Q ? dtp[(int64_t)(2 * tid) * sdt] : 0.f;
+  d[1] = 2 * tid + 1 < Q ? dtp[(int64_t)(2 * tid + 1) * sdt] : 0.f;
+}
+
+// The chunk's dt of one head (d as load_dt gave it) and its prefix sums
+// times a into cum: each thread's two rows, a scan over the warp, the warps'
+// totals through `tot` (4 floats), in a fixed order.  Ends with the
+// warpgroup's barrier.
+__device__ __forceinline__ void wg_head_vectors(const float (&d)[2], float a, float* vdt,
+                                                float* vcum, float* tot, int tid, int bar) {
+  const int lane = tid & 31, warp = tid >> 5;
+  float s = d[0] + d[1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, s, o);
+    if (lane >= o) s += v;
+  }
+  float run = __shfl_up_sync(0xffffffffu, s, 1);
+  if (lane == 0) run = 0.f;
+  if (lane == 31) tot[warp] = s;
+  *reinterpret_cast<float2*>(vdt + 2 * tid) = make_float2(d[0], d[1]);
+  hop::bar_sync(bar, 128);
+  float base = 0.f;
+  for (int k = 0; k < warp; ++k) base += tot[k];
+  run += base;
+  run += d[0];
+  const float c0 = run * a;
+  run += d[1];
+  *reinterpret_cast<float2*>(vcum + 2 * tid) = make_float2(c0, run * a);
+  hop::bar_sync(bar, 128);
+}
+
+using fa::ex2;  // 2^x, one instruction (flash_wg.cuh)
+
+// ---- forward, bf16 ------------------------------------------------------------------
+
+// x, b and c as 5-d TMA maps (make_map below); `ord[m][k]` is which of (row,
+// head or group, chunk, batch) dim k + 1 of map m (x, b, c) is.
+struct FwdMaps {
+  CUtensorMap x, b, c;
+};
+
+struct FwdArgs {
+  Args p;
+  int ord[3][4];
+  int nc, G, S, R, nt;  // chunks, groups, slices a group, heads a slice, row tiles
+};
+
 template <int HP, int N>
-__global__ void __launch_bounds__(Tc<HP, N>::NTH, 3) ssd_chunk_tc_kernel(Args p) {
-  using C = Tc<HP, N>;
-  constexpr int NTH = C::NTH, LDN = C::LDN, LDX = C::LDX;
-  constexpr int NX = HP / 8;              // 8-wide column tiles of y and states
-  constexpr int MT = N / 16;              // 16-row tiles of states
-  constexpr int MPW = (MT + 3) / 4;       // of them a warp owns: w, w + 4, ...
-  const int Q = p.Q;
-  const int nt = (Q + BT - 1) / BT;
-  const int c = blockIdx.x, h = blockIdx.y, bb = blockIdx.z;
-  const int g = h / p.rep;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, t = lane & 3;
+struct FwdWg {
+  // two warpgroups; a thread of each issues its own copies (see the note)
+  static constexpr int NTH = 256;
+  static constexpr int TILE_N = BT * N * 2, TILE_X = BT * HP * 2;  // bytes of a bf16 tile
+  static constexpr int RING = 4;              // a warpgroup's streamed x tiles
+  static constexpr int NTM = QMAX / BT;       // held score tiles: a chunk's row tiles at most
+  static constexpr int NMT = (N + 63) / 64;   // 64-row tiles of a head's states
+  static constexpr int MAXH = SLICE_HEADS / 2;  // a warpgroup's heads
+  // a warpgroup's own: its ring, each of its heads' dt, cum and weights (QMAX
+  // each), the warps' totals of each head's scan
+  static constexpr int WGB =
+      (RING * TILE_X + (MAXH * 3 * QMAX + MAXH * 4) * 4 + 1023) / 1024 * 1024;
+  static constexpr int BARS = (1 + 2 * RING) * 8;  // B/C in; each ring tile in
+  // B_0..B_{nt-1}, C_t (a y block's row tile), the warpgroups', the
+  // barriers, and 1024 bytes to align the base (the swizzle's period)
+  static size_t smem(int nt) { return 1024 + (size_t)(nt + 1) * TILE_N + 2 * WGB + BARS; }
+};
 
-  extern __shared__ float4 smem_f4[];
-  bf16* sC = reinterpret_cast<bf16*>(smem_f4);  // [BT][LDN]
-  bf16* sB = sC + BT * LDN;                     // [2 stages][BT][LDN]
-  bf16* sX = sB + 2 * BT * LDN;                 // [2 stages][BT][LDX]
-  float* sDt = reinterpret_cast<float*>(sX + 2 * BT * LDX);  // [QMAX]
-  float* sCum = sDt + QMAX;                                  // [QMAX]
-  float* sW = sCum + QMAX;  // exp(cum_Q - cum_r) dt_r, [QMAX]
+// grid: one block per (batch, chunk, group, slice of R heads, role), role
+// fastest: role 0 the slice's states (and cum), role r > 0 y of row tile
+// nt − r; two warpgroups, heads w, w + 2, ... of the slice each (see the
+// note at the top of the file).
+template <int HP, int N>
+__global__ void __launch_bounds__(FwdWg<HP, N>::NTH, 1)
+    ssd_chunk_wg_kernel(const __grid_constant__ FwdMaps maps, const FwdArgs A) {
+  using W = FwdWg<HP, N>;
+  constexpr int NY = HP / 2;  // accumulators a thread of an m64 x hp result
+  constexpr int RING = W::RING, NTM = W::NTM, NMT = W::NMT;
+  const Args& p = A.p;
+  const int Q = p.Q, nt = A.nt, R = A.R;
+  int blk = blockIdx.x;
+  const int role = blk % (nt + 1);
+  blk /= nt + 1;
+  const int sl = blk % A.S;
+  blk /= A.S;
+  const int g = blk % A.G;
+  blk /= A.G;
+  const int c = blk % A.nc, bb = blk / A.nc;
+  const bool states = role == 0;
+  const int ti = nt - role;               // a y block's row tile
+  const int per = states ? nt : ti + 1;   // x tiles a head: x_0 .. x_{per-1}
+  const int h0 = g * p.rep + sl * R;      // the slice's first head
 
-  const bf16* xp = (const bf16*)p.x + bb * p.sx[0] + c * p.sx[1] + h * p.sx[3];
-  const float* dtp = p.dt + bb * p.sd[0] + c * p.sd[1] + h * p.sd[3];
-  const bf16* bp = (const bf16*)p.b + bb * p.sb[0] + c * p.sb[1] + g * p.sb[3];
-  const bf16* cp = (const bf16*)p.c + bb * p.sc[0] + c * p.sc[1] + g * p.sc[3];
-  bf16* yp = (bf16*)p.y + bb * p.sy[0] + c * p.sy[1] + h * p.sy[3];
-  float* kp = p.cum + bb * p.sk[0] + c * p.sk[1] + h * p.sk[3];
-  float* sp = p.st + bb * p.ss[0] + c * p.ss[1] + h * p.ss[2];
-  const float a = p.a[h * p.sa];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = fa::smem_base(smem_raw);
+  bf16* sB = reinterpret_cast<bf16*>(base);  // B_0 .. B_{nt-1}
+  bf16* sC = sB + nt * BT * N;               // C_ti
+  uint8_t* wgbase = base + (size_t)(nt + 1) * W::TILE_N;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(wgbase + 2 * W::WGB);
+  // the warpgroup, broadcast from lane 0 so that ptxas sees it as uniform
+  const int w = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0), tid = threadIdx.x & 127;
+  const int lane = tid & 31, wq = tid >> 5;
+  uint64_t* ring_full = bars + 1 + RING * w;
+  bf16* ring_buf = reinterpret_cast<bf16*>(wgbase + w * W::WGB);
+  // the warpgroup's k-th head's dt, cum and weights at vecs + 3 k QMAX, + QMAX, + 2 QMAX
+  float* vecs = reinterpret_cast<float*>(wgbase + w * W::WGB + RING * W::TILE_X);
+  float* sTot = vecs + W::MAXH * 3 * QMAX;  // [MAXH][4]
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 1 + 2 * RING; ++k) hop::mbar_init(&bars[k], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  auto load_bx = [&](int jt, int stage) {
-    cp_rows<N, LDN, NTH>(sB + stage * BT * LDN, bp, p.sb[2], jt * BT, Q);
-    cp_rows<HP, LDX, NTH>(sX + stage * BT * LDX, xp, p.sx[2], jt * BT, Q);
+  // The warpgroup's x tiles, in the order it consumes them: x_0 .. x_{per-1}
+  // of each of its heads, each into the slot the copy RING before it frees.
+  // Issued by the warpgroup's thread 0.
+  const int nh = R > w ? (R - w + 1) / 2 : 0;  // heads w, w + 2, ...
+  auto issue_ring = [&](int n) {
+    if (n >= nh * per) return;
+    const int h = h0 + w + 2 * (n / per), tile = n % per;
+    hop::fence_async_smem();
+    hop::mbar_expect_tx(&ring_full[n % RING], W::TILE_X);
+    tma_tile<HP>(ring_buf + (n % RING) * BT * HP, &maps.x, A.ord[0], tile, h, c, bb,
+                 &ring_full[n % RING]);
   };
-  load_bx(0, 0);
-  fa::cp_async_commit();
-
-  // dt, cum (one warp, as in the fp32 kernel), w; padded rows have dt = 0
-  const int QP = nt * BT;
-  for (int r = threadIdx.x; r < QP; r += NTH) sDt[r] = r < Q ? dtp[(int64_t)r * p.sd[2]] : 0.f;
-  __syncthreads();
-  if (warp == 0) {
-    const int E = QP / 32;
-    float tot = 0.f;
-    for (int e = 0; e < E; ++e) tot += sDt[lane * E + e];
-    float incl = tot;
-#pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, incl, s);
-      if (lane >= s) incl += o;
+  if (tid == 0) {
+    if (w == 0) {  // the block's B tiles (and a y block's C tile), once
+      const int nb = states ? nt : ti + 1;
+      hop::mbar_expect_tx(&bars[0], (nb + !states) * W::TILE_N);
+      for (int k = 0; k < nb; ++k)
+        tma_tile<N>(sB + k * BT * N, &maps.b, A.ord[1], k, g, c, bb, &bars[0]);
+      if (!states) tma_tile<N>(sC, &maps.c, A.ord[2], ti, g, c, bb, &bars[0]);
     }
-    float run = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) run = 0.f;
-    for (int e = 0; e < E; ++e) {
-      run += sDt[lane * E + e];
-      sCum[lane * E + e] = run * a;
-    }
+    for (int n = 0; n < RING; ++n) issue_ring(n);
   }
-  __syncthreads();
-  const float cum_q = sCum[Q - 1];
-  for (int r = threadIdx.x; r < QP; r += NTH) {
-    sW[r] = expf(cum_q - sCum[r]) * sDt[r];
-    if (r < Q) kp[(int64_t)r * p.sk[2]] = sCum[r];
-  }
+  __syncwarp();
+  if (nh == 0) return;  // a slice of one head: warpgroup 1 has none (no block barrier follows)
+  // ring tile n is free once the warpgroup is done with it: the one RING
+  // further on goes into its slot
+  auto release = [&](int n) {
+    hop::bar_sync(1 + w, 128);
+    if (tid == 0) issue_ring(n + RING);
+  };
 
-  // The ring carries the column tiles of every (row tile it, column tile
-  // jt <= it) pair, then every column tile once more for the states: step q
-  // < npairs is a pair, step npairs + jt the states' share of tile jt.  So
-  // y's and the states' accumulators are never live together, which keeps the
-  // kernel within the 168 registers that let 3 blocks share an SM.
-  const int npairs = nt * (nt + 1) / 2, nsteps = npairs + nt;
-  float acc[NX][4];
-#pragma unroll
-  for (int n = 0; n < NX; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const int li0 = warp * 16 + gq;  // the thread's rows li0, li0 + 8 of a row tile
-  int it = 0, jt = 0;
-  for (int q = 0; q < npairs; ++q) {
-    const int stage = q & 1;
-    // sC is free: the previous step ended with a barrier
-    if (jt == 0) cp_rows<N, LDN, NTH>(sC, cp, p.sc[2], it * BT, Q);
-    fa::cp_async_commit();
-    const int next_it = jt < it ? it : it + 1, next_jt = jt < it ? jt + 1 : 0;
-    load_bx(next_jt, stage ^ 1);  // after the last pair: tile 0, for the states
-    fa::cp_async_commit();
-    fa::cp_async_wait<1>();  // all but the newest group: C_i, B_j and x_j are in
-    __syncthreads();
-    const bf16* sBs = sB + stage * BT * LDN;
-    const bf16* sXs = sX + stage * BT * LDX;
-    const int i0 = it * BT, j0 = jt * BT;
-    const bool diag = jt == it;
-    // on the diagonal tile the warp's rows 16 w .. 16 w + 15 see keys < 16 (w + 1)
-    const int ncol = diag ? 2 * (warp + 1) : 8;  // 8-key column tiles it needs
-    const float ci[2] = {sCum[i0 + li0], sCum[i0 + li0 + 8]};
-
-    // the tile's 64 keys in two halves of 32: 16 x 32 scores live at a time
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n0 = 4 * half;  // first 8-key column tile of the half
-      if (n0 >= ncol) break;
-
-      // 1. s = C_i·B_jᵀ, 16 rows x 32 keys a warp
-      float s[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int k0 = 0; k0 < N; k0 += 16) {
-        uint32_t af[4];
-        fa::ldsm_x4(af, fa::a_addr(sC + warp * 16 * LDN, LDN, k0, lane));
-#pragma unroll
-        for (int n = 0; n < 4; n += 2) {
-          if (n0 + n < ncol) {
-            uint32_t bf[4];
-            fa::ldsm_x4(bf, fa::bt_addr(sBs, LDN, (n0 + n) * 8, k0, lane));
-            fa::mma_bf16(s[n], af, bf[0], bf[1]);
-            fa::mma_bf16(s[n + 1], af, bf[2], bf[3]);
-          }
-        }
+  const int q4 = lane & 3, rl0 = wq * 16 + (lane >> 2);  // rows rl0, rl0 + 8 of a tile
+  const int bar = 1 + w;                                  // the warpgroup's barrier
+  // Every head's vectors, once, while B, C and the first x tiles are in
+  // flight: dt, cum (its prefix sums times a: a scan over the warpgroup, in
+  // wg_head_vectors' order) and the weights vw_r = exp(cum_e − cum_r)·dt_r,
+  // e the last row of r's tile (y) or Q − 1 (states); the states block
+  // writes cum.
+  {
+    constexpr int MAXH = W::MAXH;
+    // dt of the warpgroup's heads into vecs, rows past Q zeros: where a row's
+    // heads are contiguous and aligned, a warp reads 8 rows' R heads in
+    // 16-byte loads (the warpgroup keeps every other head), else one element
+    // a load; and every head's a
+    const float* dtb = p.dt + bb * p.sd[0] + c * p.sd[1];
+    if (p.sd[3] == 1 && p.sd[2] % 4 == 0 && R % 4 == 0 && fa::aligned16(dtb + h0)) {
+      const int row4 = R / 4;  // 16-byte loads a row
+      for (int i = tid; i < QMAX * row4; i += 128) {
+        const int r = i / row4, m = i % row4;
+        const float4 v =
+            r < Q ? fa::ld4(dtb + (int64_t)r * p.sd[2] + h0 + 4 * m) : make_float4(0.f, 0.f, 0.f, 0.f);
+        vecs[6 * m * QMAX + r] = w ? v.y : v.x;
+        vecs[(6 * m + 3) * QMAX + r] = w ? v.w : v.z;
       }
-
-      // 2. att = s · exp(cum_i − cum_j) · dt_j for i >= j, in fp32
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        if (n0 + n < ncol) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int li = li0 + 8 * (e >> 1), lj = 8 * (n0 + n) + 2 * t + (e & 1);
-            float v = 0.f;
-            if (!diag || li >= lj)
-              v = s[n][e] * exp2f((ci[e >> 1] - sCum[j0 + lj]) * fa::LOG2E) * sDt[j0 + lj];
-            s[n][e] = v;
-          }
-        }
+    } else {
+      for (int i = tid; i < QMAX * nh; i += 128) {
+        const int k = i / QMAX, r = i % QMAX;
+        vecs[3 * k * QMAX + r] =
+            r < Q ? dtb[(int64_t)r * p.sd[2] + (int64_t)(h0 + w + 2 * k) * p.sd[3]] : 0.f;
       }
-
-      // 3. y_i += att·x_j: att rounded to bf16 in the A operand, x_j exact
+    }
+    float d[MAXH][2], av[MAXH], run[MAXH];
 #pragma unroll
-      for (int kh = 0; kh < 2; ++kh) {
-        const int kk = 2 * half + kh;  // 16-key step of the tile
-        if (2 * kk < ncol) {
-          uint32_t af[4];
-          fa::c_to_a(af, s[2 * kh], s[2 * kh + 1]);
+    for (int k = 0; k < MAXH; ++k)
+      if (k < nh) av[k] = p.a[(h0 + w + 2 * k) * p.sa];
+    hop::bar_sync(bar, 128);
 #pragma unroll
-          for (int n = 0; n < NX; n += 2) {
-            uint32_t bx[4];
-            fa::ldsm_x4_t(bx, fa::b_addr(sXs, LDX, n * 8, kk * 16, lane));
-            fa::mma_bf16(acc[n], af, bx[0], bx[1]);
-            fa::mma_bf16(acc[n + 1], af, bx[2], bx[3]);
-          }
+    for (int k = 0; k < MAXH; ++k) {
+      if (k < nh) {
+        const float2 dd = *reinterpret_cast<const float2*>(vecs + 3 * k * QMAX + 2 * tid);
+        d[k][0] = dd.x;
+        d[k][1] = dd.y;
+        float t = d[k][0] + d[k][1];
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const float v = __shfl_up_sync(0xffffffffu, t, o);
+          if (lane >= o) t += v;
+        }
+        run[k] = __shfl_up_sync(0xffffffffu, t, 1);
+        if (lane == 0) run[k] = 0.f;
+        if (lane == 31) sTot[4 * k + wq] = t;
+      }
+    }
+    hop::bar_sync(bar, 128);
+#pragma unroll
+    for (int k = 0; k < MAXH; ++k) {
+      if (k < nh) {
+        float base = 0.f;
+        for (int m = 0; m < wq; ++m) base += sTot[4 * k + m];
+        float t = run[k] + base;
+        t += d[k][0];
+        const float c0 = t * av[k];
+        t += d[k][1];
+        *reinterpret_cast<float2*>(vecs + (3 * k + 1) * QMAX + 2 * tid) =
+            make_float2(c0, t * av[k]);
+      }
+    }
+    hop::bar_sync(bar, 128);
+#pragma unroll
+    for (int k = 0; k < MAXH; ++k) {
+      if (k < nh) {
+        const float* vd = vecs + 3 * k * QMAX;
+        const float* vc = vd + QMAX;
+        float* kp = p.cum + bb * p.sk[0] + c * p.sk[1] + (h0 + w + 2 * k) * p.sk[3];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r2 = 2 * tid + e;
+          vecs[(3 * k + 2) * QMAX + r2] =
+              ex2((vc[states ? Q - 1 : r2 | (BT - 1)] - vc[r2]) * fa::LOG2E) * vd[r2];
+          if (states && r2 < Q) kp[(int64_t)r2 * p.sk[2]] = vc[r2];
         }
       }
     }
+    hop::bar_sync(bar, 128);
+  }
+  hop::mbar_wait(&bars[0], 0);
+  int rs = 0;  // the warpgroup's ring tiles consumed
 
-    if (diag) {  // y_i is complete
+  if (!states) {
+    // ---- y_ti = Σ_{j <= ti} (s_j ∘ L ∘ dt) x_j, s_j = C_ti B_jᵀ formed once
+    // for the slice's heads and held in fp32 registers
+    float s[NTM][32];
+    hop::wg_fence();
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int gi = i0 + li0 + 8 * i;
+    for (int j = 0; j < NTM; ++j) {
+      if (j <= ti) {
+#pragma unroll
+        for (int k = 0; k < N / 16; ++k)
+          hop::wgmma_ss<0>(s[j], hop::Sw<N>::desc_k(sC, k, BT),
+                           hop::Sw<N>::desc_k(sB + j * BT * N, k, BT), k > 0);
+      }
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NTM; ++j) hop::fence_regs(s[j]);
+    for (int k = 0; k < nh; ++k) {
+      const int h = h0 + w + 2 * k;
+      const float* vdt = vecs + 3 * k * QMAX;
+      const float* vcum = vdt + QMAX;
+      const float* vw = vcum + QMAX;
+      const float ci[2] = {vcum[ti * BT + rl0], vcum[ti * BT + rl0 + 8]};
+      float y[NY];
+#pragma unroll
+      for (int i = 0; i < NY; ++i) y[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NTM; ++j) {
+        if (j <= ti) {
+          const int q = rs % RING;
+          hop::mbar_wait(&ring_full[q], (rs / RING) & 1);
+          const bf16* sX = ring_buf + q * BT * HP;
+          // att = s · exp(cum_i − cum_j) · dt_j in fp32: below the diagonal
+          // exp(cum_i − cum_e) · exp(cum_e − cum_j), e the tile's last row (both
+          // exponents <= 0); on it one exponent an entry, -inf where i < j
+          float att[32];
+          if (j < ti) {
+            const float ce = vcum[j * BT + BT - 1];
+            const float u[2] = {ex2((ci[0] - ce) * fa::LOG2E), ex2((ci[1] - ce) * fa::LOG2E)};
+#pragma unroll
+            for (int nb = 0; nb < 8; ++nb) {
+              const float2 wv = *reinterpret_cast<const float2*>(vw + j * BT + 8 * nb + 2 * q4);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                att[4 * nb + e] = s[j][4 * nb + e] * u[e >> 1] * ((e & 1) ? wv.y : wv.x);
+            }
+          } else {
+#pragma unroll
+            for (int nb = 0; nb < 8; ++nb) {
+              const float2 cj = *reinterpret_cast<const float2*>(vcum + j * BT + 8 * nb + 2 * q4);
+              const float2 dj = *reinterpret_cast<const float2*>(vdt + j * BT + 8 * nb + 2 * q4);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int col = 8 * nb + 2 * q4 + (e & 1), row = rl0 + 8 * (e >> 1);
+                const float arg = col <= row ? ci[e >> 1] - ((e & 1) ? cj.y : cj.x) : -INFINITY;
+                att[4 * nb + e] = s[j][4 * nb + e] * ex2(arg * fa::LOG2E) * ((e & 1) ? dj.y : dj.x);
+              }
+            }
+          }
+          // y += att·x_j: att rounded to bf16 in the A operand, x_j exact
+          uint32_t af[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) fa::c_to_a(af[kk], att + 8 * kk, att + 8 * kk + 4);
+          hop::wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hop::wgmma_rs<1>(y, af[kk], hop::Sw<HP>::desc_mn(sX, kk, BT), 1);
+          hop::wg_commit();
+          hop::wg_wait<0>();
+          hop::fence_regs(y);
+          release(rs++);
+        }
+      }
+      // y_ti, rounded to bf16 once
+      bf16* yp = (bf16*)p.y + bb * p.sy[0] + c * p.sy[1] + h * p.sy[3];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int gi = ti * BT + rl0 + 8 * h2;
         if (gi < Q) {
-          bf16* row = yp + (int64_t)gi * p.sy[2] + 2 * t;
+          bf16* row = yp + (int64_t)gi * p.sy[2] + 2 * q4;
 #pragma unroll
-          for (int n = 0; n < NX; ++n)
-            *reinterpret_cast<uint32_t*>(row + 8 * n) =
-                fa::pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+          for (int nb = 0; nb < HP / 8; ++nb)
+            *reinterpret_cast<uint32_t*>(row + 8 * nb) =
+                fa::pack_bf16(y[4 * nb + 2 * h2], y[4 * nb + 2 * h2 + 1]);
         }
       }
-#pragma unroll
-      for (int n = 0; n < NX; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;  // for the next row tile
     }
-    __syncthreads();  // everyone is done with this stage and with sC
-    it = next_it;
-    jt = next_jt;
-  }
-
-  // 4. states = Σ_j (B_j · w)ᵀ·x_j: Bᵀ read as the A operand by ldmatrix.trans,
-  //    each bf16 pair times its rows' w in fp32, rounded once
-  float st[MPW][NX][4];
+  } else {
+    // ---- states = Σ_j (B_j w_j)ᵀ x_j, w_r = exp(cum_{Q-1} − cum_r)·dt_r: Bᵀ
+    // read as the register A operand by ldmatrix.trans, each bf16 pair times
+    // its rows' w in fp32 and rounded once; and cum
+    for (int k = 0; k < nh; ++k) {
+      const int h = h0 + w + 2 * k;
+      const float* vw = vecs + (3 * k + 2) * QMAX;
+      float st[NMT][NY];
 #pragma unroll
-  for (int m = 0; m < MPW; ++m)
+      for (int mt = 0; mt < NMT; ++mt)
 #pragma unroll
-    for (int n = 0; n < NX; ++n)
+        for (int i = 0; i < NY; ++i) st[mt][i] = 0.f;
+      for (int j = 0; j < nt; ++j) {
+        const int q = rs % RING;
+        hop::mbar_wait(&ring_full[q], (rs / RING) & 1);
+        const bf16* sX = ring_buf + q * BT * HP;
+        const uint8_t* sBj = reinterpret_cast<const uint8_t*>(sB + j * BT * N);
+        uint32_t af[NMT][4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[m][n][e] = 0.f;
-  for (int q = npairs; q < nsteps; ++q) {
-    const int stage = q & 1, j0 = (q - npairs) * BT;
-    if (q + 1 < nsteps) load_bx(q + 1 - npairs, stage ^ 1);
-    fa::cp_async_commit();
-    fa::cp_async_wait<1>();  // all but the newest group: B_j and x_j are in
-    __syncthreads();
-    const bf16* sBs = sB + stage * BT * LDN;
-    const bf16* sXs = sX + stage * BT * LDX;
-#pragma unroll 1  // unrolled, ptxas hoists the next steps' loads beside 64 accumulators
-    for (int kk = 0; kk < 4; ++kk) {
-      const int r = j0 + kk * 16 + 2 * t;  // k of a0 / a1; r + 8 for a2 / a3
-      const float w0 = sW[r], w1 = sW[r + 1], w8 = sW[r + 8], w9 = sW[r + 9];
-      uint32_t af[MPW][4];
+        for (int kk = 0; kk < 4; ++kk) {
+          const int r0 = j * BT + 16 * kk + 2 * q4;  // k of a0 / a1; r0 + 8 for a2 / a3
+          const float2 w01 = *reinterpret_cast<const float2*>(vw + r0);
+          const float2 w89 = *reinterpret_cast<const float2*>(vw + r0 + 8);
 #pragma unroll
-      for (int mi = 0; mi < MPW; ++mi) {
-        const int m = warp + 4 * mi;
-        if (m < MT) {
-          fa::ldsm_x4_t(af[mi], fa::at_addr(sBs, LDN, m * 16, kk * 16, lane));
-          af[mi][0] = scale_pair(af[mi][0], w0, w1);
-          af[mi][1] = scale_pair(af[mi][1], w0, w1);
-          af[mi][2] = scale_pair(af[mi][2], w8, w9);
-          af[mi][3] = scale_pair(af[mi][3], w8, w9);
-        }
-      }
+          for (int mt = 0; mt < NMT; ++mt) {
+            const int n0 = 64 * mt + 16 * wq;  // the warp's 16 rows n of the states tile
+            if (n0 < N) {                      // N < 64: rows past N are zeros
+              fa::ldsm_x4_t(af[mt][kk], reinterpret_cast<const bf16*>(
+                                            sBj + hop::Sw<N>::off(16 * kk + (lane >> 4) * 8 +
+                                                                      (lane & 7),
+                                                                  n0 + ((lane >> 3) & 1) * 8, BT)));
+              af[mt][kk][0] = scale_pair(af[mt][kk][0], w01.x, w01.y);
+              af[mt][kk][1] = scale_pair(af[mt][kk][1], w01.x, w01.y);
+              af[mt][kk][2] = scale_pair(af[mt][kk][2], w89.x, w89.y);
+              af[mt][kk][3] = scale_pair(af[mt][kk][3], w89.x, w89.y);
+            } else {
 #pragma unroll
-      for (int n = 0; n < NX; n += 2) {
-        uint32_t bx[4];
-        fa::ldsm_x4_t(bx, fa::b_addr(sXs, LDX, n * 8, kk * 16, lane));
-#pragma unroll
-        for (int mi = 0; mi < MPW; ++mi) {
-          if (warp + 4 * mi < MT) {
-            fa::mma_bf16(st[mi][n], af[mi], bx[0], bx[1]);
-            fa::mma_bf16(st[mi][n + 1], af[mi], bx[2], bx[3]);
+              for (int e = 0; e < 4; ++e) af[mt][kk][e] = 0u;
+            }
           }
         }
+        hop::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int mt = 0; mt < NMT; ++mt)
+            hop::wgmma_rs<1>(st[mt], af[mt][kk], hop::Sw<HP>::desc_mn(sX, kk, BT), 1);
+        hop::wg_commit();
+        hop::wg_wait<0>();
+#pragma unroll
+        for (int mt = 0; mt < NMT; ++mt) hop::fence_regs(st[mt]);
+        release(rs++);
       }
-    }
-    __syncthreads();  // everyone is done with this stage
-  }
-  fa::cp_async_wait<0>();
-
+      float* sp = p.st + bb * p.ss[0] + c * p.ss[1] + h * p.ss[2];
 #pragma unroll
-  for (int mi = 0; mi < MPW; ++mi) {
-    const int m = warp + 4 * mi;
-    if (m < MT) {
+      for (int mt = 0; mt < NMT; ++mt)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float* row = sp + (int64_t)(16 * m + gq + 8 * i) * p.ss[3] + 2 * t;
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int n = 64 * mt + rl0 + 8 * h2;
+          if (n < N) {
+            float* row = sp + (int64_t)n * p.ss[3] + 2 * q4;
 #pragma unroll
-        for (int n = 0; n < NX; ++n)
-          *reinterpret_cast<float2*>(row + 8 * n) =
-              make_float2(st[mi][n][2 * i], st[mi][n][2 * i + 1]);
-      }
+            for (int nb = 0; nb < HP / 8; ++nb)
+              *reinterpret_cast<float2*>(row + 8 * nb) =
+                  make_float2(st[mt][4 * nb + 2 * h2], st[mt][4 * nb + 2 * h2 + 1]);
+          }
+        }
     }
   }
 }
 
 template <int HP, int N>
-struct TcLaunch {
-  static int run(const Args& args, int Bt, int nc, int H, cudaStream_t stream) {
-    using C = Tc<HP, N>;
-    // 16-byte cp.async of x, B and C rows
-    const int64_t* strides[3] = {args.sx, args.sb, args.sc};
-    const void* bases[3] = {args.x, args.b, args.c};
-    for (int i = 0; i < 3; ++i) {
-      if (!fa::aligned16(bases[i])) return (int)cudaErrorInvalidValue;
-      for (int d = 0; d < 4; ++d)
-        if (strides[i][d] % 8) return (int)cudaErrorInvalidValue;
-    }
-    auto kernel = ssd_chunk_tc_kernel<HP, N>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)C::SMEM);
+struct FwdLaunch {
+  static int run(const FwdMaps& maps, const FwdArgs& args, int blocks, cudaStream_t stream) {
+    auto kernel = ssd_chunk_wg_kernel<HP, N>;
+    // the limit for the longest chunk, set once a device (fa::smem_limit_once)
+    static bool limit_set[64] = {};
+    cudaError_t err = fa::smem_limit_once(kernel, FwdWg<HP, N>::smem(QMAX / BT), limit_set);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3(nc, H, Bt), C::NTH, C::SMEM, stream>>>(args);
+    kernel<<<blocks, FwdWg<HP, N>::NTH, FwdWg<HP, N>::smem(args.nt), stream>>>(maps, args);
     return (int)cudaGetLastError();
   }
 };
@@ -666,17 +798,18 @@ struct TcLaunch {
 // out: blocks of the grid, resident blocks an SM, threads a block, dynamic
 // shared memory bytes.
 template <int HP, int N>
-struct TcGrid {
-  static int run(int Bt, int nc, int H, int* out) {
-    using C = Tc<HP, N>;
-    auto kernel = ssd_chunk_tc_kernel<HP, N>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)C::SMEM);
+struct FwdGrid {
+  static int run(int blocks, int nt, int* out) {
+    auto kernel = ssd_chunk_wg_kernel<HP, N>;
+    const size_t smem = FwdWg<HP, N>::smem(nt);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, C::NTH, C::SMEM);
-    out[0] = Bt * nc * H;
-    out[2] = C::NTH;
-    out[3] = (int)C::SMEM;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, FwdWg<HP, N>::NTH,
+                                                          smem);
+    out[0] = blocks;
+    out[2] = FwdWg<HP, N>::NTH;
+    out[3] = (int)smem;
     return (int)err;
   }
 };
@@ -1057,56 +1190,6 @@ struct Wg {
   // and 1024 bytes to align the base (the swizzle's period)
   static size_t smem(int nt) { return 1024 + (size_t)(nt + 1) * TILE_N + 2 * WGB + BARS; }
 };
-
-// Rows [64 tile, 64 tile + 64) of head (or group) hg of a D-wide input into
-// a canonical tile at dst: a box a sub-tile.
-template <int D>
-__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, const int* ord,
-                                         int tile, int hg, int c, int bb, uint64_t* bar) {
-  const int logical[4] = {tile * BT, hg, c, bb};
-  const int c1 = logical[ord[0]], c2 = logical[ord[1]], c3 = logical[ord[2]],
-            c4 = logical[ord[3]];
-  constexpr int C = hop::Sw<D>::C;
-#pragma unroll
-  for (int s = 0; s < D / C; ++s)
-    hop::tma_load(dst + s * BT * C, map, bar, s * C, c1, c2, c3, c4);
-}
-
-// dt of rows 2 tid and 2 tid + 1 of one head's chunk (0 past Q): the
-// warpgroup's threads load the next head's while they work on this one.
-__device__ __forceinline__ void load_dt(float (&d)[2], const float* dtp, int64_t sdt, int Q,
-                                        int tid) {
-  d[0] = 2 * tid < Q ? dtp[(int64_t)(2 * tid) * sdt] : 0.f;
-  d[1] = 2 * tid + 1 < Q ? dtp[(int64_t)(2 * tid + 1) * sdt] : 0.f;
-}
-
-// The chunk's dt of one head (d as load_dt gave it) and its prefix sums
-// times a into cum: each thread's two rows, a scan over the warp, the warps'
-// totals through `tot` (4 floats), in a fixed order.  Ends with the
-// warpgroup's barrier.
-__device__ __forceinline__ void wg_head_vectors(const float (&d)[2], float a, float* vdt,
-                                                float* vcum, float* tot, int tid, int bar) {
-  const int lane = tid & 31, warp = tid >> 5;
-  float s = d[0] + d[1];
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float v = __shfl_up_sync(0xffffffffu, s, o);
-    if (lane >= o) s += v;
-  }
-  float run = __shfl_up_sync(0xffffffffu, s, 1);
-  if (lane == 0) run = 0.f;
-  if (lane == 31) tot[warp] = s;
-  *reinterpret_cast<float2*>(vdt + 2 * tid) = make_float2(d[0], d[1]);
-  hop::bar_sync(bar, 128);
-  float base = 0.f;
-  for (int k = 0; k < warp; ++k) base += tot[k];
-  run += base;
-  run += d[0];
-  const float c0 = run * a;
-  run += d[1];
-  *reinterpret_cast<float2*>(vcum + 2 * tid) = make_float2(c0, run * a);
-  hop::bar_sync(bar, 128);
-}
 
 // The pair of bf16 at (r, c) of a D-wide 64-row canonical tile.
 template <int D>
@@ -1787,12 +1870,15 @@ int switch_dims(int hp, int N, A... a) {
 // y (Bt,nc,Q,H,hp) like x, st (Bt,nc,H,N,hp) fp32, cum (Bt,nc,Q,H) fp32.
 // The last dimension of x, b, c, y and st is contiguous; `strides` holds the
 // other 29 (see ssd::Args, in that order, then a's).  Head h reads group
-// h / (H / G).  Returns cudaGetLastError() of the launch.
+// h / (H / G).  bf16: slices of R heads a block (ssd_fwd_geometry in
+// ssd_chunk.py); fp32: R is not read.  Returns cudaGetLastError() of the
+// launch.
 extern "C" int ssd_chunk(const void* x, const void* dt, const void* b, const void* c,
                          const void* a, void* y, void* st, void* cum,
                          const long long* strides, int Bt, int nc, int Q, int H, int G,
-                         int hp, int N, int is_bf16, void* stream) {
+                         int hp, int N, int R, int is_bf16, void* stream) {
   if (Q < 1 || Q > ssd::QMAX || G < 1 || H % G) return (int)cudaErrorInvalidValue;
+  if (is_bf16 && (R < 1 || R > ssd::SLICE_HEADS || (H / G) % R)) return (int)cudaErrorInvalidValue;
   if (Bt == 0 || nc == 0 || H == 0) return 0;
   ssd::Args args;
   args.x = x;
@@ -1810,14 +1896,36 @@ extern "C" int ssd_chunk(const void* x, const void* dt, const void* b, const voi
   args.Q = Q;
   args.rep = H / G;
   cudaStream_t s = (cudaStream_t)stream;
-  // by type, not a fallback: bf16 only ever reaches the tensor-core kernel
-  if (is_bf16) return ssd::switch_dims<ssd::TcLaunch>(hp, N, args, Bt, nc, H, s);
+  // by type, not a fallback: bf16 only ever reaches the wgmma kernel
+  if (is_bf16) {
+    ssd::FwdArgs fa_;
+    fa_.p = args;
+    fa_.nc = nc;
+    fa_.G = G;
+    fa_.R = R;
+    fa_.S = H / G / R;
+    fa_.nt = (Q + ssd::BT - 1) / ssd::BT;
+    ssd::FwdMaps maps;
+    int err;
+    if ((err = ssd::make_map(&maps.x, fa_.ord[0], x, args.sx, hp, Q, H, nc, Bt)) ||
+        (err = ssd::make_map(&maps.b, fa_.ord[1], b, args.sb, N, Q, G, nc, Bt)) ||
+        (err = ssd::make_map(&maps.c, fa_.ord[2], c, args.sc, N, Q, G, nc, Bt)))
+      return err;
+    const int blocks = Bt * nc * G * fa_.S * (fa_.nt + 1);
+    return ssd::switch_dims<ssd::FwdLaunch>(hp, N, maps, fa_, blocks, s);
+  }
   return ssd::switch_dims<ssd::Fma>(hp, N, args, Bt, nc, H, s);
 }
 
-// The bf16 kernel's launch geometry for these dims (out[4], see ssd::TcGrid).
-extern "C" int ssd_chunk_grid(int Bt, int nc, int H, int hp, int N, int* out) {
-  return ssd::switch_dims<ssd::TcGrid>(hp, N, Bt, nc, H, out);
+// The bf16 kernel's launch geometry for these dims and R heads a slice
+// (out[4], see ssd::FwdGrid).
+extern "C" int ssd_chunk_grid(int Bt, int nc, int Q, int H, int G, int hp, int N, int R,
+                              int* out) {
+  if (Q < 1 || Q > ssd::QMAX || G < 1 || H % G || R < 1 || R > ssd::SLICE_HEADS ||
+      (H / G) % R)
+    return (int)cudaErrorInvalidValue;
+  const int nt = (Q + ssd::BT - 1) / ssd::BT;
+  return ssd::switch_dims<ssd::FwdGrid>(hp, N, Bt * nc * G * (H / G / R) * (nt + 1), nt, out);
 }
 
 // The gradient of ssd_chunk.  Inputs as ssd_chunk's, and dy like y, dstates
@@ -1838,7 +1946,7 @@ extern "C" int ssd_chunk_bwd(const void* x, const void* dt, const void* b, const
                              const long long* strides, int Bt, int nc, int Q, int H, int G,
                              int hp, int N, int R, int is_bf16, void* stream) {
   if (Q < 1 || Q > ssd::QMAX || G < 1 || H % G) return (int)cudaErrorInvalidValue;
-  if (is_bf16 && (R < 1 || R > 2 * ssd::Wg<16, 16>::MAXH || (H / G) % R))
+  if (is_bf16 && (R < 1 || R > ssd::SLICE_HEADS || (H / G) % R))
     return (int)cudaErrorInvalidValue;
   if (H == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -1913,7 +2021,7 @@ extern "C" int ssd_chunk_bwd(const void* x, const void* dt, const void* b, const
 // heads a slice (out[4], see ssd::WgGrid).
 extern "C" int ssd_chunk_bwd_grid(int Bt, int nc, int Q, int H, int G, int hp, int N, int R,
                                   int* out) {
-  if (Q < 1 || Q > ssd::QMAX || G < 1 || H % G || R < 1 || R > 2 * ssd::Wg<16, 16>::MAXH ||
+  if (Q < 1 || Q > ssd::QMAX || G < 1 || H % G || R < 1 || R > ssd::SLICE_HEADS ||
       (H / G) % R)
     return (int)cudaErrorInvalidValue;
   const int nt = (Q + ssd::BT - 1) / ssd::BT;

@@ -9,10 +9,9 @@ with ``H = Kv·G`` (q-head ``h`` reads kv-head ``h // G``); ``lse`` and
 transposed or copied on the way in.
 
 Each C entry point chooses its kernel by the input type, not as a fallback:
-bf16 runs a tensor-core kernel (``flash_fwd_tc_kernel`` on ``mma.sync``,
-``flash_dq_wg_kernel`` and ``flash_dkv_wg_kernel`` on ``wgmma`` fed by TMA:
-p and ds rounded to bf16 before the second products), fp32 the IEEE fp32 FMA
-kernel.
+bf16 runs a kernel on ``wgmma`` fed by TMA (``flash_fwd_wg_kernel``,
+``flash_dq_wg_kernel``, ``flash_dkv_wg_kernel``: p and ds rounded to bf16
+before the second products), fp32 the IEEE fp32 FMA kernel.
 
 The plain versions are the tile-free statement of what the kernels compute:
 forward returns ``(o, lse)``; the backward ones are the explicit recompute

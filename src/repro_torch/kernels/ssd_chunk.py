@@ -10,7 +10,10 @@ ROADMAP.md), cum (Bt,nc,Q,H) fp32.  The kernel reads every input through its
 strides — the chunked views of the model's activations and the group slices
 of ``bc`` go in without a copy, and B/C are not repeated per head — and
 writes outputs allocated here.  ``ops.ssd_chunk`` maps the reference's
-``(B·H,nc,Q,·)`` layout onto this one with views.
+``(B·H,nc,Q,·)`` layout onto this one with views.  In bf16 a block of the
+forward takes a slice of a group's heads (``ssd_fwd_geometry``): it holds
+the chunk's B (and C) tiles once for them, and a y block forms the scores
+``C·Bᵀ`` once for them.
 
 The TPU kernel has no backward (JAX differentiates the reference's
 einsums); the port's backward is a kernel of its own, entry point
@@ -37,14 +40,16 @@ HEAD_DIMS = (16, 32, 64)
 STATE_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 256
 
-#: rows of a tile of the backward kernels
+#: rows of a tile of the bf16 kernels and of the fp32 backward
 TILE = 64
-#: at most this many heads of a group share one block of the bf16 backward,
-#: which sums their dB and dC before anything reaches device memory
+#: at most this many heads of a group share one block of the bf16 kernels:
+#: the forward holds the chunk's B and C (and forms the scores) once for
+#: them, the backward sums their dB and dC before anything reaches device
+#: memory
 SLICE_HEADS = 16
 
 _VP = ctypes.c_void_p
-_ARGTYPES = [_VP] * 9 + [ctypes.c_int] * 8
+_ARGTYPES = [_VP] * 9 + [ctypes.c_int] * 9
 _BWD_ARGTYPES = [_VP] * 18 + [ctypes.c_int] * 9
 
 #: the plain version: the kernel's arithmetic, stated in PyTorch
@@ -94,14 +99,50 @@ def _check(x, dt, b, c, a, what: str = "ssd_chunk kernel") -> None:
             raise ValueError(f"{what}: all tensors must lie on one CUDA device")
 
 
+def _slice_heads(rep: int) -> int:
+    """Heads of a slice: the largest divisor of a group's ``rep`` heads up to
+    ``SLICE_HEADS``."""
+    return max(r for r in range(1, min(rep, SLICE_HEADS) + 1) if rep % r == 0)
+
+
+def _check_dims(what, Q, H, G, hp, N) -> None:
+    if G < 1 or H % G:
+        raise ValueError(f"{what}: {H} heads do not split into {G} groups")
+    if hp not in HEAD_DIMS or N not in STATE_DIMS or not 1 <= Q <= MAX_CHUNK:
+        raise ValueError(f"{what}: needs hp in {HEAD_DIMS}, N in {STATE_DIMS}, "
+                         f"1 <= Q <= {MAX_CHUNK}; got hp={hp}, N={N}, Q={Q}")
+
+
+def ssd_fwd_geometry(Bt, nc, Q, H, G, hp, N) -> dict:
+    """The bf16 forward's launch geometry: the heads of each group split into
+    ``slices`` of ``slice_heads`` R consecutive heads (as the backward's,
+    ``ssd_bwd_geometry``), and each slice into ``roles``: one block for its
+    states and cum (role 0), and one for y of each row tile of ``TILE`` rows,
+    the last row tile first (role r, row tile ``tiles − r``).  A block holds
+    its chunk's B tiles (and a y block its C tile) for all the slice's heads;
+    a y block forms the scores C_t·B_jᵀ once for them.  One block per (batch,
+    chunk, group, slice, role), role fastest."""
+    _check_dims("ssd_chunk", Q, H, G, hp, N)
+    rep = H // G
+    R = _slice_heads(rep)
+    tiles = -(-Q // TILE)
+    slices = [tuple(range(g * rep + s * R, g * rep + (s + 1) * R))
+              for g in range(G) for s in range(rep // R)]
+    roles = [("states", None)] + [("y", tiles - r) for r in range(1, tiles + 1)]
+    return {"slice_heads": R, "slices": slices, "tiles": tiles, "roles": roles,
+            "blocks": Bt * nc * len(slices) * len(roles)}
+
+
 def ssd_chunk_cuda(x, dt, b, c, a):
     """Launch the kernel; returns ``(y, states, cum)`` (see the module).
-    bf16 inputs run ``ssd_chunk_tc_kernel`` (tensor cores; the scores times
-    decay and dt, and B times its states weight, rounded to bf16 before
-    their products), fp32 inputs the IEEE fp32 FMA kernel."""
+    bf16 inputs run ``ssd_chunk_wg_kernel`` (``wgmma`` fed by TMA, a block a
+    slice of heads and a role, ``ssd_fwd_geometry``; the scores times decay
+    and dt, and B times its states weight, rounded to bf16 before their
+    products), fp32 inputs the IEEE fp32 FMA kernel."""
     _check(x, dt, b, c, a)
     Bt, nc, Q, H, hp = x.shape
     G, N = b.shape[3], b.shape[4]
+    R = _slice_heads(H // G)
     y = torch.empty((Bt, nc, Q, H, hp), dtype=x.dtype, device=x.device)
     states = torch.empty((Bt, nc, H, N, hp), dtype=torch.float32, device=x.device)
     cum = torch.empty((Bt, nc, Q, H), dtype=torch.float32, device=x.device)
@@ -111,7 +152,7 @@ def ssd_chunk_cuda(x, dt, b, c, a):
     arr = (ctypes.c_longlong * len(strides))(*strides)
     launch("ssd_chunk", _ARGTYPES, x.device, x.data_ptr(), dt.data_ptr(), b.data_ptr(),
            c.data_ptr(), a.data_ptr(), y.data_ptr(), states.data_ptr(), cum.data_ptr(),
-           ctypes.addressof(arr), Bt, nc, Q, H, G, hp, N, int(x.dtype == torch.bfloat16))
+           ctypes.addressof(arr), Bt, nc, Q, H, G, hp, N, R, int(x.dtype == torch.bfloat16))
     return y, states, cum
 
 
@@ -204,15 +245,11 @@ def ssd_bwd_geometry(Bt, nc, Q, H, G, hp, N, bf16: bool = True) -> dict:
     ``pdb`` and ``pdc`` hold one (Q, N) partial a slice, ``pvec`` a head's
     ``tiles + 3`` vectors of Q, ``pda`` a head's share of da.  fp32: one
     block per (batch, chunk, head) and a partial a head."""
-    if G < 1 or H % G:
-        raise ValueError(f"ssd_chunk_bwd: {H} heads do not split into {G} groups")
-    if hp not in HEAD_DIMS or N not in STATE_DIMS or not 1 <= Q <= MAX_CHUNK:
-        raise ValueError(f"ssd_chunk_bwd: needs hp in {HEAD_DIMS}, N in {STATE_DIMS}, "
-                         f"1 <= Q <= {MAX_CHUNK}; got hp={hp}, N={N}, Q={Q}")
+    _check_dims("ssd_chunk_bwd", Q, H, G, hp, N)
     rep = H // G
     tiles = -(-Q // TILE)
     if bf16:
-        R = max(r for r in range(1, min(rep, SLICE_HEADS) + 1) if rep % r == 0)
+        R = _slice_heads(rep)
         parts = Bt * nc * G * (rep // R)
         scratch = {"pdb": parts * Q * N, "pdc": parts * Q * N,
                    "pvec": Bt * nc * H * (tiles + 3) * Q, "pda": Bt * nc * H}

@@ -142,9 +142,9 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
 
 
 def tc_arithmetic(q, k, v, do, causal, window):
-    """The arithmetic of the bf16 tensor-core kernels (``flash_fwd_tc_kernel``
-    on ``mma.sync``, ``flash_dq_wg_kernel`` and ``flash_dkv_wg_kernel`` on
-    ``wgmma``) in plain PyTorch: fp32 products of the bf16 inputs, with ``p``
+    """The arithmetic of the bf16 kernels on ``wgmma`` (``flash_fwd_wg_kernel``,
+    ``flash_dq_wg_kernel`` and ``flash_dkv_wg_kernel``) in plain PyTorch:
+    fp32 products of the bf16 inputs, with ``p``
     (forward and dk/dv) and ``ds`` (dq and dk/dv) rounded to bf16 before they
     meet ``v``, ``do``, ``k`` and ``q`` (in registers, or at hd 256 in shared
     memory: the same rounding); the row sum ``l`` and ``ds`` are formed from

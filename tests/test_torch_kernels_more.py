@@ -522,10 +522,12 @@ def test_ssd_chunk_module_takes_no_autograd_of_the_plain_version():
 
 
 def ssd_tc_arithmetic(x, dt, b, c, a):
-    """The arithmetic of the bf16 tensor-core SSD kernel
-    (``ssd_chunk_tc_kernel``) in plain PyTorch, in the model's layout: fp32
+    """The arithmetic of the bf16 SSD kernel on ``wgmma``
+    (``ssd_chunk_wg_kernel``) in plain PyTorch, in the model's layout: fp32
     products of the bf16 inputs; the score ``C·Bᵀ`` times ``exp(cum_i −
-    cum_j)`` (i ≥ j) and ``dt_j`` in fp32, rounded to bf16 once before it
+    cum_j)`` (i ≥ j; below the diagonal tile the kernel takes it as a row's
+    and a column's factor, both ≤ 1, which moves only fp32 roundings) and
+    ``dt_j`` in fp32, rounded to bf16 once before it
     meets the exact bf16 ``x``; ``B`` times ``w = exp(cum_Q − cum)·dt`` in fp32,
     rounded to bf16 once before it meets ``x`` in the states product; y
     rounded to x's dtype at the end, states and cum fp32."""
@@ -644,25 +646,38 @@ def test_ssd_bwd_tensor_core_rounding_fits_the_bf16_tolerance(case):
         assert np.all(err <= ROW_RTOL * np.maximum(norm, np.median(norm))), (name, err.max())
 
 
-# -- the bf16 backward's launch geometry -------------------------------------------------
+# -- the bf16 kernels' launch geometry ----------------------------------------------------
+
+SLICE_CASES = [(64, 1), (8, 2), (6, 3), (48, 2), (17, 1), (96, 4), (4, 4)]
 
 
-@pytest.mark.parametrize("H,G", [(64, 1), (8, 2), (6, 3), (48, 2), (17, 1), (96, 4), (4, 4)])
-def test_ssd_bwd_slices_cover_every_head_once_in_order(H, G):
+@pytest.mark.parametrize("H,G,kernel", [(H, G, k) for k in ("bwd", "fwd") for H, G in SLICE_CASES],
+                         ids=[f"{k}-{H}-{G}".removeprefix("bwd-") for k in ("bwd", "fwd")
+                              for H, G in SLICE_CASES])
+def test_ssd_bwd_slices_cover_every_head_once_in_order(H, G, kernel):
     """The slices of ``ssd_bwd_geometry`` (the bf16 backward sums dB and dC
-    over each in its block) are runs of consecutive heads of one group, at
-    most ``SLICE_HEADS`` long, all of one length R that divides the group,
-    and together every head exactly once, in order; one block a slice and
-    row tile."""
+    over each in its block) and of ``ssd_fwd_geometry`` (the bf16 forward
+    holds B and C, and forms the scores, once for each) are runs of
+    consecutive heads of one group, at most ``SLICE_HEADS`` long, all of one
+    length R that divides the group, and together every head exactly once,
+    in order.  The backward has one block a slice and row tile; the forward
+    one a slice and role: the states, then y of each row tile, the last
+    first."""
     Q = 96
-    geo = sc.ssd_bwd_geometry(2, 3, Q, H, G, 64, 128)
+    geometry = sc.ssd_bwd_geometry if kernel == "bwd" else sc.ssd_fwd_geometry
+    geo = geometry(2, 3, Q, H, G, 64, 128)
     R, rep = geo["slice_heads"], H // G
     assert [h for s in geo["slices"] for h in s] == list(range(H))
     assert all(len(s) == R and len({h // rep for h in s}) == 1 for s in geo["slices"])
     assert rep % R == 0 and R <= sc.SLICE_HEADS
     assert R == max(r for r in range(1, sc.SLICE_HEADS + 1) if rep % r == 0)
-    assert geo["tiles"] == 2 and geo["blocks"] == 2 * 3 * len(geo["slices"]) * 2
-    assert geo["scratch"]["pdb"] == geo["scratch"]["pdc"] == 2 * 3 * (H // R) * Q * 128
+    if kernel == "bwd":
+        assert geo["tiles"] == 2 and geo["blocks"] == 2 * 3 * len(geo["slices"]) * 2
+        assert geo["scratch"]["pdb"] == geo["scratch"]["pdc"] == 2 * 3 * (H // R) * Q * 128
+    else:
+        assert geo["tiles"] == 2 and geo["roles"] == [("states", None), ("y", 1), ("y", 0)]
+        assert geo["blocks"] == 2 * 3 * len(geo["slices"]) * 3
+        assert geo["slice_heads"] == sc.ssd_bwd_geometry(2, 3, Q, H, G, 64, 128)["slice_heads"]
 
 
 def test_ssd_bwd_scratch_at_mamba2_is_an_eighth_of_the_per_head_partials():
@@ -682,13 +697,27 @@ def test_ssd_bwd_scratch_at_mamba2_is_an_eighth_of_the_per_head_partials():
     assert geo["scratch_bytes"] <= per_head / 8
 
 
-@pytest.mark.parametrize("Q,H,G,hp,N", [(64, 8, 3, 64, 128), (64, 8, 0, 64, 128),
-                                        (64, 8, 2, 128, 128), (64, 8, 2, 48, 128),
-                                        (64, 8, 2, 64, 256), (64, 8, 2, 64, 96),
-                                        (0, 8, 2, 64, 128), (257, 8, 2, 64, 128)])
-def test_ssd_bwd_geometry_raises_outside_the_instantiations(Q, H, G, hp, N):
+OUTSIDE = [(64, 8, 3, 64, 128), (64, 8, 0, 64, 128), (64, 8, 2, 128, 128), (64, 8, 2, 48, 128),
+           (64, 8, 2, 64, 256), (64, 8, 2, 64, 96), (0, 8, 2, 64, 128), (257, 8, 2, 64, 128)]
+
+
+@pytest.mark.parametrize("Q,H,G,hp,N,kernel", [(*d, k) for k in ("bwd", "fwd") for d in OUTSIDE],
+                         ids=["-".join(map(str, (k, *d))).removeprefix("bwd-")
+                              for k in ("bwd", "fwd") for d in OUTSIDE])
+def test_ssd_bwd_geometry_raises_outside_the_instantiations(Q, H, G, hp, N, kernel):
+    geometry = sc.ssd_bwd_geometry if kernel == "bwd" else sc.ssd_fwd_geometry
     with pytest.raises(ValueError):
-        sc.ssd_bwd_geometry(1, 1, Q, H, G, hp, N)
+        geometry(1, 1, Q, H, G, hp, N)
+
+
+def test_ssd_fwd_geometry_at_mamba2():
+    """At mamba2-1.3b's training shape the bf16 forward runs 4 slices of 16
+    heads a chunk, each in 5 blocks (the states, y of 4 row tiles), 1,280 in
+    all."""
+    geo = sc.ssd_fwd_geometry(4, 16, 256, 64, 1, 64, 128)
+    assert geo["slice_heads"] == 16 and len(geo["slices"]) == 4
+    assert geo["roles"] == [("states", None), ("y", 3), ("y", 2), ("y", 1), ("y", 0)]
+    assert geo["blocks"] == 4 * 16 * 4 * 5 == 1280
 
 
 # -- dispatch, counters, sources ----------------------------------------------------------
