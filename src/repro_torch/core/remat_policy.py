@@ -208,7 +208,11 @@ class _PolicyScope:
 
 
 def _contexts(policy):
-    fwd, rec = create_selective_checkpoint_contexts(policy)
+    # while a profiled step records, the policy counts the operators it judges
+    # (imported here: ``core/__init__`` exports its modules by name, as the
+    # reference's does, and the reference has no ``spans``)
+    from . import spans
+    fwd, rec = create_selective_checkpoint_contexts(spans.counted(policy))
     tags = getattr(policy, "names", None)
     return _PolicyScope(fwd, tags), _PolicyScope(rec, tags)
 

@@ -23,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch.autograd.profiler as _profiler
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm", "fused_adam", "ssd_chunk")
 #: ``--split-compile 0`` runs the front end's optimisation on all host cores:
@@ -180,7 +182,12 @@ def kernel_call(name: str, plain, run, *args, written: tuple[int, ...] = ()):
     the one place where each wrapper has chosen between the two.  While a
     trace is active (``TRACE_HOOK``) the call goes through the tracer, which
     records it as one node; ``written`` holds the positions of the arguments
-    that the call updates in place."""
+    that the call updates in place.  While a ``torch.profiler`` session
+    records, ``run`` is the span ``kernel.<name>`` (``core/spans.py``), inside
+    the tracer's node."""
+    if _profiler._is_profiler_enabled:
+        from ..core import spans
+        run = spans.kernel(name, run)
     if TRACE_HOOK is None:
         return run(*args)
     return TRACE_HOOK(name, plain, run, args, written)

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from .. import resolve_device, torch_dtype
+from ..core import spans
 from ..core.remat_policy import checkpoint_name
 from ..distributed.sharding import (P, ax, axis_sizes, block_index, current_mesh, local_map,
                                     placements, prune_pspec, shard, take_in_block)
@@ -102,12 +103,17 @@ def norm(x, scale, cfg):
     fp32 product, one cast) with ``cfg.use_flash``, else ``rmsnorm`` (the
     reference model's rounding order).  The kernel normalises whole rows, so
     on DTensors the normalised dim (and ``scale``) is gathered first where it
-    is sharded or partial (the mamba mixer's gated norm over 'ffn')."""
-    if cfg.use_flash:
-        if isinstance(x, DTensor):
-            x, scale = _whole_rows(x, scale)
-        return ops.rmsnorm(x, scale, cfg.norm_eps)
-    return rmsnorm(x, scale, cfg.norm_eps)
+    is sharded or partial (the mamba mixer's gated norm over 'ffn').  The
+    span ``norm`` (``core/spans.py``)."""
+    with spans.span("norm", x) as sp:
+        if cfg.use_flash:
+            if isinstance(x, DTensor):
+                x, scale = _whole_rows(x, scale)
+            y = ops.rmsnorm(x, scale, cfg.norm_eps)
+        else:
+            y = rmsnorm(x, scale, cfg.norm_eps)
+        spans.grads(sp, y)
+    return y
 
 
 def _whole_rows(x, scale):

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from ..core import spans
 from ..core.remat_policy import checkpoint_name
 from ..distributed.sharding import (current_mesh, local_map, placements, prune_pspec, pspec,
                                     shard)
@@ -145,7 +146,10 @@ def moe_apply(p: dict, x, cfg):
     E = cfg.moe.n_experts
     if not isinstance(x, DTensor):
         y, gates, top_idx = _moe_local(p, x, cfg, 0)
-        return y, _aux_loss(gates, top_idx, E)
+        with spans.span("moe.route", gates) as sp:      # the aux loss, where the code makes it
+            aux = _aux_loss(gates, top_idx, E)
+            spans.grads(sp, aux)
+        return y, aux
     y, me, ce = _moe_mesh(p, x, cfg)
     return shard(y, "batch", "seq", "embed_act"), _aux_from_means(me, ce, E)
 
@@ -161,26 +165,34 @@ def _moe_local(p: dict, x, cfg, e0: int):
     E_loc = p["wi"].shape[0]
     C = _capacity(S, cfg)
 
-    gates, top_gate, top_idx = _route(p, x, cfg)
-    dest = _dispatch_slots(top_idx, E, C).reshape(B, S * K)
-    # kept entries of the experts held here, in their local slots
-    lo = e0 * C
-    mine = (dest >= lo) & (dest < lo + E_loc * C)
-    # a dropped or foreign entry reads the group's last slot (and is weighted by 0)
-    row = _table_rows((dest - lo).clamp(0, E_loc * C - 1), B, C).reshape(-1)
+    with spans.span("moe.route", x) as sp:
+        gates, top_gate, top_idx = _route(p, x, cfg)
+        spans.grads(sp, gates, top_gate)
+    with spans.span("moe.dispatch", x) as sp:
+        dest = _dispatch_slots(top_idx, E, C).reshape(B, S * K)
+        # kept entries of the experts held here, in their local slots
+        lo = e0 * C
+        mine = (dest >= lo) & (dest < lo + E_loc * C)
+        # a dropped or foreign entry reads the group's last slot (and is weighted by 0)
+        row = _table_rows((dest - lo).clamp(0, E_loc * C - 1), B, C).reshape(-1)
 
-    # dispatch: each entry's row of x to its slot; the overflow row E_loc·B·C
-    # takes the others and is cut off
-    src = x[:, :, None, :].expand(B, S, K, D).reshape(B * S * K, D)
-    disp = torch.zeros((E_loc * B * C + 1, D), dtype=x.dtype, device=x.device)
-    disp = disp.index_copy_(0, torch.where(mine.reshape(-1), row, E_loc * B * C), src)
-    out_e = _expert_ffn(p, disp[:-1].view(E_loc, B * C, D), cfg)
+        # dispatch: each entry's row of x to its slot; the overflow row E_loc·B·C
+        # takes the others and is cut off
+        src = x[:, :, None, :].expand(B, S, K, D).reshape(B * S * K, D)
+        disp = torch.zeros((E_loc * B * C + 1, D), dtype=x.dtype, device=x.device)
+        disp = disp.index_copy_(0, torch.where(mine.reshape(-1), row, E_loc * B * C), src)
+        spans.grads(sp, disp)
+    with spans.span("moe.experts", disp) as sp:
+        out_e = _expert_ffn(p, disp[:-1].view(E_loc, B * C, D), cfg)
+        spans.grads(sp, out_e)
 
-    # combine in token order: the gate (times mine) cast to the activation
-    # dtype before the product, then the K entries of a token summed
-    vals = out_e.reshape(E_loc * B * C, D).index_select(0, row)
-    w = (top_gate.reshape(-1) * mine.reshape(-1)).to(vals.dtype)
-    y = (vals * w[:, None]).reshape(B, S, K, D).sum(dim=2)
+    with spans.span("moe.combine", out_e) as sp:
+        # combine in token order: the gate (times mine) cast to the activation
+        # dtype before the product, then the K entries of a token summed
+        vals = out_e.reshape(E_loc * B * C, D).index_select(0, row)
+        w = (top_gate.reshape(-1) * mine.reshape(-1)).to(vals.dtype)
+        y = (vals * w[:, None]).reshape(B, S, K, D).sum(dim=2)
+        spans.grads(sp, y)
     return y, gates, top_idx
 
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..core import spans
 from ..core.remat_policy import checkpoint_name
 from ..distributed.sharding import local_map, shard, unflatten
 from ..kernels import ops
@@ -102,51 +103,66 @@ def ssd_apply(p: dict, x, cfg):
         raise ValueError(f"sequence length {S} is not a multiple of the chunk {Q}")
     nc = S // Q
 
-    z = x @ p["wz"]
-    xin = x @ p["wx"]
-    bc = x @ p["wbc"]
-    xin = F.silu(_causal_conv(xin.float(), p["conv_x"])).to(x.dtype)
-    bc = F.silu(_causal_conv(bc.float(), p["conv_bc"])).to(x.dtype)
-    xin = shard(xin, "batch", "seq", "ffn")
-    Bm, Cm = unflatten(bc, -1, (2 * G, N)).split(G, dim=2)        # (B,S,G,N)
-    dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"])        # (B,S,nh)
-    A = -torch.exp(p["A_log"])                                    # (nh,)
+    with spans.span("ssm.proj_in", x) as sp:
+        z = x @ p["wz"]
+        xin = x @ p["wx"]
+        bc = x @ p["wbc"]
+        spans.grads(sp, z, xin, bc)
+    with spans.span("ssm.conv", xin) as sp:
+        xin = F.silu(_causal_conv(xin.float(), p["conv_x"])).to(x.dtype)
+        bc = F.silu(_causal_conv(bc.float(), p["conv_bc"])).to(x.dtype)
+        xin = shard(xin, "batch", "seq", "ffn")
+        Bm, Cm = unflatten(bc, -1, (2 * G, N)).split(G, dim=2)    # (B,S,G,N)
+        spans.grads(sp, xin, Bm, Cm)
+    with spans.span("ssm.proj_in", x) as sp:       # the fourth projection, where the code makes it
+        dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"])    # (B,S,nh)
+        spans.grads(sp, dt)
+    with spans.span("ssm.chunk", xin) as sp:
+        A = -torch.exp(p["A_log"])                                # (nh,)
 
-    xh = unflatten(xin, -1, (nh, hp))
+        xh = unflatten(xin, -1, (nh, hp))
 
-    def ch(t):
-        return t.reshape(B_, nc, Q, *t.shape[2:])
+        def ch(t):
+            return t.reshape(B_, nc, Q, *t.shape[2:])
 
-    xc, dtc = ch(xh), ch(dt)
-    if cfg.use_flash:
-        # the kernel takes B/C per group, x and dt in place (views, no copy)
-        y_intra, st, cum = ops.ssd_chunk_heads(xc, dtc, ch(Bm), ch(Cm), A)
-        states = st.transpose(-1, -2)                             # (B,nc,nh,hp,N)
-        Cc = ch(Cm).repeat_interleave(nh // G, dim=3)
-    else:
-        rep = nh // G
-        Bc, Cc = (ch(t.repeat_interleave(rep, dim=2)) for t in (Bm, Cm))
-        cum = torch.cumsum(dtc * A, dim=2)                        # (B,nc,Q,nh)
-        y_intra, states = _intra_einsum(xc, dtc, Bc, Cc, cum)
-    total = cum[:, :, -1]                                         # (B,nc,nh)
+        xc, dtc = ch(xh), ch(dt)
+        if cfg.use_flash:
+            # the kernel takes B/C per group, x and dt in place (views, no copy)
+            y_intra, st, cum = ops.ssd_chunk_heads(xc, dtc, ch(Bm), ch(Cm), A)
+            states = st.transpose(-1, -2)                         # (B,nc,nh,hp,N)
+            Cc = ch(Cm).repeat_interleave(nh // G, dim=3)
+        else:
+            rep = nh // G
+            Bc, Cc = (ch(t.repeat_interleave(rep, dim=2)) for t in (Bm, Cm))
+            cum = torch.cumsum(dtc * A, dim=2)                    # (B,nc,Q,nh)
+            y_intra, states = _intra_einsum(xc, dtc, Bc, Cc, cum)
+        spans.grads(sp, y_intra, states, cum, Cc, xh)
 
-    # inter-chunk recurrence: the state entering chunk c, in fp32
-    st_c = torch.zeros((B_, nh, hp, N), dtype=torch.float32, device=x.device)
-    prev = []
-    for c in range(nc):
-        prev.append(st_c)
-        st_c = st_c * torch.exp(total[:, c])[:, :, None, None] + states[:, c]
-    prev_states = torch.stack(prev, dim=1)                        # (B,nc,nh,hp,N)
+    with spans.span("ssm.scan", y_intra) as sp:
+        total = cum[:, :, -1]                                     # (B,nc,nh)
+        # inter-chunk recurrence: the state entering chunk c, in fp32
+        st_c = torch.zeros((B_, nh, hp, N), dtype=torch.float32, device=x.device)
+        prev = []
+        for c in range(nc):
+            prev.append(st_c)
+            st_c = st_c * torch.exp(total[:, c])[:, :, None, None] + states[:, c]
+        prev_states = torch.stack(prev, dim=1)                    # (B,nc,nh,hp,N)
 
-    y_inter = torch.einsum("bcihn,bchpn->bcihp",
-                           (Cc.float() * torch.exp(cum)[..., None]).to(xc.dtype),
-                           prev_states.to(xc.dtype))
-    y = (y_intra + y_inter).reshape(B_, S, nh, hp)
-    y = y + xh * p["D"][..., None].to(xh.dtype)
-    y = checkpoint_name(y.reshape(B_, S, di), "ssm_state")
+        y_inter = torch.einsum("bcihn,bchpn->bcihp",
+                               (Cc.float() * torch.exp(cum)[..., None]).to(xc.dtype),
+                               prev_states.to(xc.dtype))
+        y = (y_intra + y_inter).reshape(B_, S, nh, hp)
+        y = y + xh * p["D"][..., None].to(xh.dtype)
+        y = checkpoint_name(y.reshape(B_, S, di), "ssm_state")
+        spans.grads(sp, y)
 
-    y = norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg)
-    return shard(y @ p["wo"], "batch", "seq", "embed_act")
+    with spans.span("ssm.gate", y) as sp:
+        y = norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg)
+        spans.grads(sp, y)
+    with spans.span("ssm.proj_out", y) as sp:
+        out = shard(y @ p["wo"], "batch", "seq", "embed_act")
+        spans.grads(sp, out)
+    return out
 
 
 def _recur_local(state, dt, xh, Bh, Ch, A, D):

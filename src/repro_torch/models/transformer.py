@@ -38,6 +38,7 @@ import operator
 import torch
 
 from .. import resolve_device, torch_dtype
+from ..core import spans
 from ..core.remat_policy import checkpoint_name, checkpointed, resolve_remat
 from ..distributed.sharding import shard
 from .attention import (attn_decode_step, attn_specs, gqa_attention,
@@ -120,14 +121,17 @@ def param_axes(cfg):
 def _apply_layer(prm, x, cfg, spec, positions):
     """One block: (x, the MoE layer's aux loss, or a zero)."""
     h = checkpoint_name(norm(x, prm["ln1"]["scale"], cfg), "attn_in")
-    if spec.mixer == "attn":
-        mix = gqa_attention(prm["attn"], h, cfg, positions, window=None)
-    elif spec.mixer == "local":
-        mix = gqa_attention(prm["attn"], h, cfg, positions, window=cfg.window)
-    elif spec.mixer == "mla":
-        mix = mla_attention(prm["attn"], h, cfg, positions)
-    else:
+    if spec.mixer == "mamba":
         mix = ssd_apply(prm["mixer"], h, cfg)
+    else:
+        with spans.span("attn", h) as sp:
+            if spec.mixer == "attn":
+                mix = gqa_attention(prm["attn"], h, cfg, positions, window=None)
+            elif spec.mixer == "local":
+                mix = gqa_attention(prm["attn"], h, cfg, positions, window=cfg.window)
+            else:
+                mix = mla_attention(prm["attn"], h, cfg, positions)
+            spans.grads(sp, mix)
     x = x + mix
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.moe:

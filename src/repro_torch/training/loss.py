@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core import spans
 from ..distributed.sharding import block_index, local_map, shard, take_in_block
 from ..models.transformer import forward_hidden, unembed_weight
 
@@ -64,29 +65,31 @@ def lm_loss(params, cfg, inputs, labels, loss_chunk: int | None = None):
     if chunk == 0:  # auto: chunk when the logits tensor would be > 2^28 elems
         chunk = S // 8 if S * cfg.vocab > (1 << 28) and S % 8 == 0 else 0
 
-    if chunk and S % chunk == 0 and S > chunk:
-        def chunk_nll(h, lab, msk):
-            logits = shard(h @ w, "batch", "seq", "vocab")   # (B, chunk, V) transient
-            nll, z = _xent_from_logits(logits, lab)
-            return torch.sum(nll * msk), torch.sum(z * msk)
+    with spans.span("loss.head", hidden) as sp:
+        if chunk and S % chunk == 0 and S > chunk:
+            def chunk_nll(h, lab, msk):
+                logits = shard(h @ w, "batch", "seq", "vocab")   # (B, chunk, V) transient
+                nll, z = _xent_from_logits(logits, lab)
+                return torch.sum(nll * msk), torch.sum(z * msk)
 
-        nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        z_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        for c in range(S // chunk):
-            sl = slice(c * chunk, (c + 1) * chunk)
-            args = (hidden[:, sl], safe_labels[:, sl], mask[:, sl])
-            if torch.is_grad_enabled():
-                dn, dz = checkpoint(chunk_nll, *args, use_reentrant=False,
-                                    preserve_rng_state=False)
-            else:
-                dn, dz = chunk_nll(*args)
-            nll_sum = nll_sum + dn
-            z_sum = z_sum + dz
-    else:
-        logits = shard(hidden @ w, "batch", "seq", "vocab")
-        nll, z = _xent_from_logits(logits, safe_labels)
-        nll_sum = torch.sum(nll * mask)
-        z_sum = torch.sum(z * mask)
+            nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+            z_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+            for c in range(S // chunk):
+                sl = slice(c * chunk, (c + 1) * chunk)
+                args = (hidden[:, sl], safe_labels[:, sl], mask[:, sl])
+                if torch.is_grad_enabled():
+                    dn, dz = checkpoint(chunk_nll, *args, use_reentrant=False,
+                                        preserve_rng_state=False)
+                else:
+                    dn, dz = chunk_nll(*args)
+                nll_sum = nll_sum + dn
+                z_sum = z_sum + dz
+        else:
+            logits = shard(hidden @ w, "batch", "seq", "vocab")
+            nll, z = _xent_from_logits(logits, safe_labels)
+            nll_sum = torch.sum(nll * mask)
+            z_sum = torch.sum(z * mask)
+        spans.grads(sp, nll_sum, z_sum)
 
     denom = mask.sum().clamp_min(1.0)
     nll_mean = nll_sum / denom

@@ -29,6 +29,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 from .. import torch_dtype
 from ..convert import tree_leaves, tree_map
+from ..core import spans
 from ..distributed.sharding import whole
 from ..optim.optimizers import Optimizer, clip_by_global_norm
 from .loss import lm_loss
@@ -65,14 +66,20 @@ def make_train_step(cfg, optimizer: Optimizer, grad_accum: int = 1,
         for p in leaves:
             p.requires_grad_(True)
         with on_mesh(params):
-            loss, metrics = lm_loss(params, cfg, inputs, labels)
-            grads = torch.autograd.grad(whole(loss), leaves)
+            with spans.span("step.forward"):
+                loss, metrics = lm_loss(params, cfg, inputs, labels)
+            with spans.span("step.backward"):
+                grads = torch.autograd.grad(whole(loss), leaves)
             grads = [g.redistribute(p.device_mesh, p.placements)
                      if isinstance(g, DTensor) else g for p, g in zip(leaves, grads, strict=True)]
             metrics = {k: whole(v).detach() for k, v in metrics.items()}
         return metrics, _unflatten_like(params, grads)
 
     def train_step(params, opt_state, batch, step):
+        with spans.step(batch["inputs"].device):
+            return _train_step(params, opt_state, batch, step)
+
+    def _train_step(params, opt_state, batch, step):
         inputs, labels = batch["inputs"], batch["labels"]
         if grad_accum == 1:
             metrics, grads = grad_fn(params, inputs, labels)
@@ -91,9 +98,10 @@ def make_train_step(cfg, optimizer: Optimizer, grad_accum: int = 1,
             grads = tree_map(lambda g: g.float() / grad_accum, g_acc)
             metrics = {"loss": loss_sum / grad_accum, "aux_loss": aux_sum / grad_accum}
 
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        with on_mesh(params):
-            params, opt_state = optimizer.update(grads, opt_state, params, step)
+        with spans.span("step.optimizer"):
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            with on_mesh(params):
+                params, opt_state = optimizer.update(grads, opt_state, params, step)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["lr_step"] = torch.tensor(int(step), dtype=torch.int32)
