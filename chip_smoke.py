@@ -200,6 +200,7 @@ from repro_torch.core.trace import flop_count, recording  # noqa: E402
 from repro_torch.core.remat_policy import resolve_remat  # noqa: E402
 from repro_torch.data.pipeline import make_batch, make_tokens  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_adam as fad  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -304,6 +305,14 @@ KERNELS = {
                       "bf16_path": "ssd_chunk_bwd_wg_kernel: " + WG_PATH + "; then the sums "
                                    "over a group's slices of heads, each head's dcum and ddt, "
                                    "and da, in a fixed order"},
+    "causal_conv": {"route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/causal_conv.cu",
+                    "replaces": "no TPU kernel: the reference's _causal_conv "
+                                "(src/repro/models/ssm.py) is jnp that XLA fuses; on the card "
+                                "the plain fp32 conv, its silu and casts"},
+    "causal_conv_bwd": {"route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/causal_conv.cu",
+                        "replaces": "autograd of the plain version (no TPU kernel)"},
 }
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 #: the kernels whose bf16 inputs run on the tensor cores (all on wgmma): (device
@@ -365,8 +374,10 @@ def memory_bound_kernels(widths) -> dict[str, dict[str, int]]:
     named by their launch geometry, which the width alone decides; widths
     that share one are named once), the backward's fixed-order sum, and
     every ``adam::adam_kernel<P, G, S>`` (the paths' two among the eight),
-    and the SSD backward's fixed-order sums (over a group's heads or slices
-    of heads, in both dtypes, and of da) and its heads' last step."""
+    the SSD backward's fixed-order sums (over a group's heads or slices
+    of heads, in both dtypes, and of da) and its heads' last step, and the
+    causal conv's bf16 forward and backward at every width and its
+    fixed-order sum of dw."""
     rows = TRAIN_BATCH * SEQ
     norm = {"_ZN2rn25rmsnorm_bwd_reduce_kernel": 1}
     for d in widths:
@@ -376,7 +387,10 @@ def memory_bound_kernels(widths) -> dict[str, dict[str, int]]:
                  f"ELi{g['max_vectors_per_thread']}E"] = 1
     return {"rmsnorm": norm, "fused_adam": {"_ZN4adam11adam_kernelI": 8},
             "ssd_chunk": {"_ZN3ssd17bwd_reduce_kernelI": 2, "_ZN3ssd13bwd_da_kernel": 1,
-                          "_ZN3ssd16bwd_final_kernel": 1}}
+                          "_ZN3ssd16bwd_final_kernel": 1},
+            "causal_conv": {f"_ZN2cc20conv_silu_{kind}_kernelI13__nv_bfloat16":
+                            cc.MAX_WIDTH for kind in ("fwd", "bwd")}
+                           | {"_ZN2cc18conv_dw_sum_kernel": 1}}
 
 
 def expect_no_spills(what, kernels, count) -> None:
@@ -1794,6 +1808,178 @@ def time_ssd(Bt, nc, Q, H, hp, G, N) -> dict:
             **ssd_bound(Bt, nc, Q, H, hp, G, N, 2)}
 
 
+# -- causal_conv ------------------------------------------------------------------
+
+
+#: fp32 at small shapes against the plain versions on the card: y and du
+#: within this (abs and rel: the pre-activation and du's sum are the plain
+#: version's to the bit, expf may differ by an ulp), dw within 5e-5 of its
+#: largest entry (sums over B·S positions in another order)
+CONV_FP32_TOL = 2e-5
+#: (B, S, C, cw): one position, a sequence shorter than the taps, ragged runs
+#: and channel blocks, every width
+CONV_SHAPES = [(1, 1, 8, 4), (2, 3, 16, 4), (3, 77, 24, 3), (2, 1000, 200, 2),
+               (1, 513, 4104, 1), (2, 300, 256, 4), (4, 130, 1032, 4)]
+
+
+def conv_bound(B, S, C, cw, itemsize, bwd) -> dict:
+    """The forward reads u and writes y once, and reads w: about 2·cw + 4
+    fp32 operations an element (the taps, exp, a sum, a division).  The
+    backward reads u and dy and writes du once, reads w and writes dw: about
+    4·cw + 12 (the taps again, silu's gradient, du's taps, dw's products)."""
+    n = B * S * C
+    if bwd:
+        return bound((4 * cw + 12) * n, 3 * n * itemsize + 8 * cw * C, PEAK_FP32)
+    return bound((2 * cw + 4) * n, 2 * n * itemsize + 4 * cw * C, PEAK_FP32)
+
+
+def conv_inputs(seed, B, S, C, cw, dtype, strided=False):
+    """u (B,S,C) in ``dtype`` (with ``strided`` a view whose rows are 8
+    elements longer than C), w (cw,C) fp32 at scale 0.5, dy like u."""
+    rng = generator(seed)
+    u = randn(rng, (B, S, C + 8 * strided), dtype)[..., :C]
+    return u, randn(rng, (cw, C), torch.float32, 0.5), randn(rng, (B, S, C), dtype)
+
+
+def check_conv_small() -> dict:
+    """Both kernels against the plain versions at ``CONV_SHAPES`` and one
+    strided u, fp32 (y and du within ``CONV_FP32_TOL``, dw 5e-5 of its
+    largest entry) and bf16 (y and du 2e-2 and a row within
+    ``BF16_ROW_RTOL``, dw within ``DSCALE_RTOL``); two backward calls equal
+    bit for bit."""
+    worst = {}
+    cases = [(shape, False) for shape in CONV_SHAPES] + [((2, 100, 64, 4), True)]
+    for dtype, tol, dw_tol in ((torch.float32, CONV_FP32_TOL, 5e-5),
+                               (torch.bfloat16, 2e-2, DSCALE_RTOL)):
+        err = dict.fromkeys(("y", "du", "y_row_rel", "du_row_rel", "dw_rel"), 0.0)
+        for i, (shape, strided) in enumerate(cases):
+            u, w, dy = conv_inputs(50 + i, *shape, dtype, strided)
+            what = f"{shape} {dtype}" + " strided" * strided
+            y = cc.causal_conv_cuda(u, w)
+            du, dw = cc.causal_conv_bwd_cuda(u, w, dy)
+            du2, dw2 = cc.causal_conv_bwd_cuda(u, w, dy)
+            y_p = cc.causal_conv_plain(u, w)
+            du_p, dw_p = cc.causal_conv_bwd_plain(u, w, dy)
+            torch.cuda.synchronize()
+            now = {"y": expect_close("causal_conv", y, y_p, tol, tol, what),
+                   "du": expect_close("causal_conv_bwd", du, du_p, tol, tol, what + " (du)"),
+                   "y_row_rel": row_rel_err(y, y_p), "du_row_rel": row_rel_err(du, du_p),
+                   "dw_rel": rel_to_max(dw, dw_p)}
+            rows_bad = dtype == torch.bfloat16 and max(now["y_row_rel"],
+                                                       now["du_row_rel"]) > BF16_ROW_RTOL
+            if (rows_bad or not torch.isfinite(dw).all() or now["dw_rel"] > dw_tol
+                    or not (torch.equal(du, du2) and torch.equal(dw, dw2))):
+                raise AssertionError(f"causal_conv kernels disagree with their plain versions at "
+                                     f"{what}: {now} (rows {BF16_ROW_RTOL}, dw {dw_tol}; two "
+                                     "backward calls must be equal)")
+            err = {k: max(v, now[k]) for k, v in err.items()}
+        worst[str(dtype).removeprefix("torch.")] = err
+    return worst
+
+
+def conv_dw_over(g, uf, cw, b, lo, hi):
+    """dw's terms of positions [lo, hi) of sequence b: Σ g[s]·u[s − (cw−1−k)]."""
+    return torch.stack([(g[b, lo:hi] * F.pad(uf, (0, 0, cw - 1 - k, 0))[b, lo:hi]).sum(0)
+                        for k in range(cw)])
+
+
+def conv_faults(u, w, dy, y_p, du_p, dw_p) -> dict:
+    """What the bf16 checks read on faults the kernels could have, built
+    from the plain formulas: a tap dropped (w[0], the oldest input's, read as
+    0) and the input shifted by one position (u[s−1] read for u[s]), in y and
+    in du; dw summed from a single tile (the positions of the backward's
+    first block of runs) and without the last tile's partial.  Each must read
+    above its tolerance.  Returns the forward's readings and the backward's."""
+    B, S, C = u.shape
+    cw = w.shape[0]
+    w0 = w.clone()
+    w0[0] = 0
+    shifted = F.pad(u, (0, 0, 1, 0))[:, :S]
+    tile = cc.WARPS * cc.geometry(B, S, C, torch.cuda.get_device_properties(0)
+                                  .multi_processor_count)["run"]
+    uf = u.float()
+    g = torch.ops.aten.silu_backward(dy.float(), cc.conv_local(uf, w))
+    fwd = {"tap_dropped": {"y_row_rel": row_rel_err(cc.causal_conv_plain(u, w0), y_p)},
+           "input_shifted": {"y_row_rel": row_rel_err(cc.causal_conv_plain(shifted, w), y_p)}}
+    bwd = {"tap_dropped": {"du_row_rel": row_rel_err(cc.causal_conv_bwd_plain(u, w0, dy)[0],
+                                                     du_p)},
+           "input_shifted": {"du_row_rel": row_rel_err(cc.causal_conv_bwd_plain(shifted, w, dy)[0],
+                                                       du_p)},
+           "dw_one_tile": {"dw_rel": rel_to_max(conv_dw_over(g, uf, cw, 0, 0, tile), dw_p),
+                           "positions": min(tile, S)},
+           "dw_last_tile_dropped": {"dw_rel": rel_to_max(
+               dw_p - conv_dw_over(g, uf, cw, B - 1, (S - 1) // tile * tile, S), dw_p)}}
+    rows = [f[k] for f in (*fwd.values(), *bwd.values()) for k in f if k.endswith("row_rel")]
+    dws = [f["dw_rel"] for f in bwd.values() if "dw_rel" in f]
+    if min(rows) <= BF16_ROW_RTOL or min(dws) <= DSCALE_RTOL:
+        raise AssertionError(f"the causal_conv checks at {(B, S, C)} cannot see planted "
+                             f"faults: forward {fwd}, backward {bwd}")
+    return fwd, bwd
+
+
+def time_conv(B, S, C, cw) -> dict:
+    """Forward and backward at (B, S, C) in bf16 (mamba2's x or B/C): checked
+    against the plain versions (y and du 2e-2 and a row within
+    ``BF16_ROW_RTOL``, dw within ``DSCALE_RTOL`` of its largest entry, two
+    backward calls bit for bit), planted faults, then timed over rotated
+    inputs (a cold L2) beside the bounds, the plain versions, autograd of the
+    plain forward (what the model ran before the kernel) and the library:
+    ``F.conv1d`` (cuDNN, depthwise, on u laid out (B, C, S)) then ``F.silu``,
+    and their autograd backward, which the port never calls."""
+    dt = torch.bfloat16
+    u, w, dy = conv_inputs(60, B, S, C, cw, dt)
+    what = f"B={B} S={S} C={C} cw={cw} bf16"
+    y, y_p = cc.causal_conv_cuda(u, w), cc.causal_conv_plain(u, w)
+    du, dw = cc.causal_conv_bwd_cuda(u, w, dy)
+    du2, dw2 = cc.causal_conv_bwd_cuda(u, w, dy)
+    du_p, dw_p = cc.causal_conv_bwd_plain(u, w, dy)
+    torch.cuda.synchronize()
+    fwd = {"max_abs_err": expect_close("causal_conv", y, y_p, 2e-2, 2e-2, what),
+           "max_row_rel_err": row_rel_err(y, y_p), "equal_to_plain": torch.equal(y, y_p)}
+    bwd = {"max_abs_err": expect_close("causal_conv_bwd", du, du_p, 2e-2, 2e-2, what + " (du)"),
+           "max_row_rel_err": row_rel_err(du, du_p), "dw_rel_err": rel_to_max(dw, dw_p),
+           "repeat_bit_for_bit": torch.equal(du, du2) and torch.equal(dw, dw2)}
+    if (max(fwd["max_row_rel_err"], bwd["max_row_rel_err"]) > BF16_ROW_RTOL
+            or not torch.isfinite(dw).all() or bwd["dw_rel_err"] > DSCALE_RTOL
+            or not bwd["repeat_bit_for_bit"]):
+        raise AssertionError(f"causal_conv kernels disagree with their plain versions at "
+                             f"{what}: forward {fwd}, backward {bwd} (tolerances: a row "
+                             f"{BF16_ROW_RTOL}, dw {DSCALE_RTOL} of its largest entry)")
+    fwd["planted_faults"], bwd["planted_faults"] = conv_faults(u, w, dy, y_p, du_p, dw_p)
+    del y, y_p, du, du2, du_p, dw2
+    torch.cuda.empty_cache()
+
+    sets = rotating_sets(lambda i: conv_inputs(70 + i, B, S, C, cw, dt), 2 * u.numel() * 2)
+    geo = cc.geometry(B, S, C, torch.cuda.get_device_properties(0).multi_processor_count)
+    ut = u.transpose(1, 2).contiguous()
+    wt = w.t().unsqueeze(1).to(dt)
+    library = lambda a, k: F.silu(F.conv1d(a, k, padding=cw - 1, groups=C)[..., :S])
+    fwd.update(ms=time_rotating(lambda a, ww, _: cc.causal_conv_cuda(a, ww), sets, 20),
+               plain_ms=time_ms(lambda: cc.causal_conv_plain(u, w), 3),
+               library_ms=time_ms(lambda: library(ut, wt), 5),
+               library_note="F.conv1d (cuDNN, depthwise, u laid out (B, C, S)) then F.silu",
+               geometry=geo,
+               l2="cold", **conv_bound(B, S, C, cw, 2, False))
+    bwd.update(ms=time_rotating(cc.causal_conv_bwd_cuda, sets, 20),
+               split_ms=device_split(lambda: cc.causal_conv_bwd_cuda(u, w, dy), 5),
+               plain_ms=time_ms(lambda: cc.causal_conv_bwd_plain(u, w, dy), 3),
+               autograd_of_plain_ms=backward_ms(cc.causal_conv_plain, (u, w), 3),
+               geometry=geo,
+               l2="cold", **conv_bound(B, S, C, cw, 2, True))
+    bwd["split_ms"]["no kernel"] = bwd["ms"] - sum(bwd["split_ms"].values())
+    a, wl = ut.detach().requires_grad_(True), wt.detach().requires_grad_(True)
+    out = library(a, wl)
+    dyt = dy.transpose(1, 2).contiguous()
+    bwd["library_ms"] = time_ms(
+        lambda: torch.autograd.grad(out, (a, wl), dyt, retain_graph=True), 5)
+    bwd["library_note"] = "autograd backward of F.conv1d and F.silu (du and dw)"
+    del sets, out, a, wl, ut, dyt
+    torch.cuda.empty_cache()
+    for part in (fwd, bwd):
+        part["share_of_bound"] = part["bound_ms"] / part["ms"]
+    return {"forward": fwd, "backward": bwd}
+
+
 NORM_SHAPES = [(4, 128), (2, 33, 256), (1, 7, 5, 64), (37, 1152), (5, 2048), (3, 4096),
                (2, 8200)]
 
@@ -1834,10 +2020,11 @@ def check_rmsnorm_dispatch() -> dict:
 
 
 def phase_kernels_more(gemma, mamba, mla, moe_cfg) -> dict:
-    """rmsnorm (forward and backward), fused_adam and ssd_chunk: fp32 at
-    small shapes (the norm also at MLA's shapes), then bf16 at the shapes the
-    training and serve runs give them, timed; fused_adam also as one
-    multi-tensor call over whole trees."""
+    """rmsnorm (forward and backward), fused_adam, ssd_chunk and the causal
+    conv (forward and backward): fp32 at small shapes (the norm also at MLA's
+    shapes; the conv also in bf16), then bf16 at the shapes the training and
+    serve runs give them, timed; fused_adam also as one multi-tensor call
+    over whole trees."""
     worst = {"rmsnorm": 0.0, "fused_adam": 0.0}
     bwd = {"dx": 0.0, "dscale_rel": 0.0}
     for i, shape in enumerate(NORM_SHAPES + mla_norm_shapes(mla)):
@@ -1863,6 +2050,10 @@ def phase_kernels_more(gemma, mamba, mla, moe_cfg) -> dict:
                                    "ssd_chunk_bwd_rel_to_max": SSD_BWD_FP32_RTOL},
          max_abs_err={**worst, "rmsnorm_bwd": bwd, "fused_adam_mixed_dtypes": mixed},
          ssd_chunk_bwd_rel_to_max=ssd_bwd, fused_adam_multi=trees)
+    emit("kernels_conv_small", cases=len(CONV_SHAPES) + 1,
+         tol={"float32": {"y_du": CONV_FP32_TOL, "dw_rel": 5e-5},
+              "bfloat16": {"y_du": 2e-2, "row_rel": BF16_ROW_RTOL, "dw_rel": DSCALE_RTOL}},
+         max_err=check_conv_small())
     ssd_small = check_ssd_bf16_small()
     emit("kernels_bf16_small_ssd", cases=len(SSD_CASES) + len(SSD_MODEL_CASES), tol=0.2,
          rtol=2e-2, tol_row_rel=BF16_ROW_RTOL, max_abs_err=ssd_small["max_abs_err"],
@@ -1901,6 +2092,11 @@ def phase_kernels_more(gemma, mamba, mla, moe_cfg) -> dict:
     ssd = time_ssd(*ssd_shape)
     torch.cuda.empty_cache()
     ssd_bwd = time_ssd_bwd(*ssd_shape)
+    torch.cuda.empty_cache()
+    cw = mamba.ssm.conv_width
+    convs = {C: time_conv(TRAIN_BATCH, SEQ, C, cw)
+             for C in (mamba.d_inner, 2 * mamba.ssm.n_groups * mamba.ssm.d_state)}
+    torch.cuda.empty_cache()
     # beside the forward's backward_plain_ms (autograd of its plain version,
     # what the Function ran before it had a backward kernel)
     ssd_bwd["autograd_of_plain_ms"] = ssd["backward_plain_ms"]
@@ -1911,7 +2107,8 @@ def phase_kernels_more(gemma, mamba, mla, moe_cfg) -> dict:
          fused_adam=adam, fused_adam_tree={"model": mamba.name, **tree},
          ssd_chunk={"shape": dict(zip(("B", "nc", "Q", "H", "hp", "G", "N"), ssd_shape,
                                       strict=True)), **ssd},
-         ssd_chunk_bwd=ssd_bwd)
+         ssd_chunk_bwd=ssd_bwd,
+         causal_conv={f"B={TRAIN_BATCH} S={SEQ} C={C} cw={cw}": v for C, v in convs.items()})
     shape = f"bf16 rows={rows} d={mamba.d_model}"
     others = lambda part: {**{f"d={d}": norms[d][part] for d in norms if d != mamba.d_model},
                            **{k: v[part] for k, v in mla_norms.items()}}
@@ -1931,7 +2128,12 @@ def phase_kernels_more(gemma, mamba, mla, moe_cfg) -> dict:
             "ssd_chunk": {**ssd, "shape": "bf16 B={} nc={} Q={} H={} hp={} G={} N={}".format(
                 *ssd_shape)},
             "ssd_chunk_bwd": {**ssd_bwd, "shape": "bf16 B={} nc={} Q={} H={} hp={} G={} "
-                                                  "N={}".format(*ssd_shape)}}
+                                                  "N={}".format(*ssd_shape)},
+            **{name: {**convs[mamba.d_inner][part], "tol_row_rel": BF16_ROW_RTOL,
+                      "shape": f"bf16 B={TRAIN_BATCH} S={SEQ} C={mamba.d_inner} cw={cw} (x)",
+                      "other_shapes": {f"C={C} (B/C)": v[part] for C, v in convs.items()
+                                       if C != mamba.d_inner}}
+               for name, part in (("causal_conv", "forward"), ("causal_conv_bwd", "backward"))}}
 
 
 # ---------------------------------------------------------------------------
@@ -1950,13 +2152,14 @@ def layer_norms(cfg, spec) -> int:
 def expected_forward_launches(cfg) -> dict:
     """Kernel launches of one forward pass (no remat, no backward): per layer
     its norms, one flash_fwd for an attention mixer at S % 128 == 0 (MLA
-    takes no flash kernel), one ssd_chunk for a mamba mixer; then the final
-    norm."""
+    takes no flash kernel), one ssd_chunk and two causal_conv (x and B/C)
+    for a mamba mixer; then the final norm."""
     out = dict.fromkeys(KERNELS, 0)
     for spec in cfg.layer_specs():
         out["rmsnorm"] += layer_norms(cfg, spec)
         out["flash_fwd"] += int(spec.mixer in ("attn", "local"))
         out["ssd_chunk"] += int(spec.mixer == "mamba")
+        out["causal_conv"] += 2 * int(spec.mixer == "mamba")
     out["rmsnorm"] += 1
     return out
 
@@ -1977,11 +2180,13 @@ def expected_launches(cfg, params=None, optimizer="adamw") -> dict:
     wrapper allocates; the remainder layers are not recomputed).  A layer's forward launches one
     rmsnorm for each of its norms (``layer_norms``), one flash_fwd for an
     attention mixer and one
-    ssd_chunk for a mamba mixer; its backward one rmsnorm_bwd for each of
-    those norms (one call, two device kernels: the rows, then the
-    fixed-order sum of dscale), one flash_dq and one flash_dkv for attention
-    and one ssd_chunk_bwd for a mamba mixer (one call, three device kernels:
-    the heads, then the fixed-order sums over a group's heads and of da).
+    ssd_chunk and two causal_conv (x and B/C) for a mamba mixer; its backward
+    one rmsnorm_bwd for each of those norms (one call, two device kernels:
+    the rows, then the fixed-order sum of dscale), one flash_dq and one
+    flash_dkv for attention and one ssd_chunk_bwd (one call, three device
+    kernels: the heads, then the fixed-order sums over a group's heads and of
+    da) and two causal_conv_bwd (two device kernels each: the runs, then the
+    fixed-order sum of dw) for a mamba mixer.
     Then the final norm and its
     backward, and, given the parameter tree ``params``, fused_adam once per
     (p, g, m/v) dtype group of AdamW's leaves (gradients in the params'
@@ -2001,6 +2206,8 @@ def expected_launches(cfg, params=None, optimizer="adamw") -> dict:
         out["flash_dkv"] += attn
         out["ssd_chunk"] += runs * mamba
         out["ssd_chunk_bwd"] += mamba
+        out["causal_conv"] += 2 * runs * mamba
+        out["causal_conv_bwd"] += 2 * mamba
         out["rmsnorm"] += runs * norms
         out["rmsnorm_bwd"] += norms
     out["rmsnorm"] += int(cfg.use_flash)
@@ -2357,6 +2564,8 @@ GROUPS = {"flash_fwd": ("fa::flash_fwd",), "flash_dq": ("fa::flash_dq",),
           "ssd_chunk_bwd": ("ssd::ssd_chunk_bwd", "ssd::bwd_"), "ssd_chunk": ("ssd::ssd_chunk",),
           "rmsnorm_bwd": ("rn::rmsnorm_bwd",), "rmsnorm": ("rn::rmsnorm",),
           "fused_adam": ("adam::adam",),
+          "causal_conv_bwd": ("cc::conv_silu_bwd", "cc::conv_dw_sum"),
+          "causal_conv": ("cc::conv_silu_fwd",),
           "matmul": ("nvjet", "gemm", "cutlass", "gemv"),
           "elementwise": ("elementwise",), "reduce": ("reduce",),
           "memcpy_memset": ("Memcpy", "Memset")}
@@ -4058,7 +4267,8 @@ def main() -> None:
                             "max_row_rel_err", "tol_row_rel", "dscale_rel_err",
                             "tol_dscale_rel", "autograd_of_plain_ms", "planted_faults",
                             "tree", "tol_note", "share_of_bound", "by_output", "split_ms",
-                            "scratch_bytes"):
+                            "scratch_bytes", "dw_rel_err", "repeat_bit_for_bit", "geometry",
+                            "equal_to_plain"):
                     if key in t:
                         entry[key] = t[key]
             if timed_lm is not None and name in timed_lm:

@@ -29,11 +29,12 @@ the optimizer.  On CUDA the step really runs while it is traced.
   kernels, ``ssd_chunk`` and ``ssd_chunk_bwd`` (dims ``B`` = batch·heads
   (·chunks), ``M``,
   ``N`` the sequence or chunk lengths, ``K`` what the FLOPs leave), ``norm``
-  / ``norm_bwd`` for the rmsnorm entry points and ``opt`` for AdamW, kinds
-  that ``graph.OP_CLASS`` already holds (class ``gemm``, or ``simd``).  Its
+  / ``norm_bwd`` for the rmsnorm entry points, ``opt`` for AdamW and
+  ``elementwise`` for the causal conv and its backward, kinds that
+  ``graph.OP_CLASS`` already holds (class ``gemm``, or ``simd``).  Its
   FLOPs are what ``torch.utils.flop_counter.FlopCounterMode`` reads from the
   plain version on ``meta`` at the same shapes, the dry-run's convention
-  (0 for the norm and AdamW, which hold no matrix product).  So a step's
+  (0 for the norm, the conv and AdamW, which hold no matrix product).  So a step's
   graph is the same on the CPU, on ``meta`` and on the card.  On CUDA each
   such node must have launched exactly one kernel: anything else raises.
 * **Tensors** are named by what they hold, not by Python identity (autograd
@@ -123,10 +124,12 @@ _COMPOSITE_REDUCE = {"mean", "linalg_vector_norm", "logsumexp"}
 _IDENTITY = {torch.ops.aten.lift_fresh.default}
 
 #: a kernel node's op: ``gemm`` (class gemm) for the attention and SSD
-#: kernels, the norms' and the optimizer's kinds (class simd) for the others
+#: kernels, the norms', the optimizer's and ``elementwise`` (class simd) for
+#: the others
 KERNEL_OPS = {"flash_fwd": "gemm", "flash_dq": "gemm", "flash_dkv": "gemm",
               "ssd_chunk": "gemm", "ssd_chunk_bwd": "gemm", "rmsnorm": "norm",
-              "rmsnorm_bwd": "norm_bwd", "fused_adam": "opt"}
+              "rmsnorm_bwd": "norm_bwd", "fused_adam": "opt", "causal_conv": "elementwise",
+              "causal_conv_bwd": "elementwise"}
 
 
 def _dtype(t: torch.Tensor) -> str:

@@ -26,7 +26,8 @@ from pathlib import Path
 import torch.autograd.profiler as _profiler
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm", "fused_adam", "ssd_chunk")
+SOURCES = ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm", "fused_adam", "ssd_chunk",
+           "causal_conv")
 #: ``--split-compile 0`` runs the front end's optimisation on all host cores:
 #: ssd_chunk.cu's 48 kernels build in ≈ 26 s instead of ≈ 40 s on the H100's
 #: host (PERF.md)
@@ -34,10 +35,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile", "0")
 
 #: the counted C entry points, each named by its symbol, and the source whose
-#: library holds it: one per source, and the rmsnorm and SSD chunk backwards
-#: beside their forwards
+#: library holds it: one per source, and the rmsnorm, SSD chunk and causal
+#: conv backwards beside their forwards
 ENTRY_POINTS = {**{name: name for name in SOURCES}, "rmsnorm_bwd": "rmsnorm",
-                "ssd_chunk_bwd": "ssd_chunk"}
+                "ssd_chunk_bwd": "ssd_chunk", "causal_conv_bwd": "causal_conv"}
 #: launches per entry point, counted by each wrapper where it launches its
 #: kernel and nowhere else
 LAUNCHES = dict.fromkeys(ENTRY_POINTS, 0)

@@ -8,21 +8,25 @@
   that its placements allow it — flash: batch and heads sharded only;
   rmsnorm: the last dim replicated; ssd_chunk: batch and heads only;
   fused_adam: any placement, shared by p, g, m and v of a leaf.  Anything
-  else raises with the offending placement: nothing is gathered in silence.
-  The gradients of replicated operands come back ``Partial`` where another
+  else raises with the offending placement: nothing is gathered in silence,
+  but by ``causal_conv_silu``, which takes each rank's batch rows and
+  channels with the whole sequence (``causal_conv_placements``: a sharded
+  sequence is gathered, as the plain conv's ``local_map`` does).  The
+  gradients of replicated operands come back ``Partial`` where another
   operand is sharded (``sharding.grad_placements``);
 * a ``meta`` tensor takes the plain version too: its operators give outputs
   of the right shapes and dtypes on ``meta`` and compute nothing, and the
   dry-run's FLOP counters see them (``build.PLAIN_DEVICES``);
 * ``flash_attention`` is one ``torch.autograd.Function`` wiring the recompute
   backward (dq kernel, then dk/dv kernel) from the saved ``(q,k,v,o,lse)``;
-  ``rmsnorm`` is one whose backward is the rmsnorm backward kernel, and
+  ``rmsnorm`` is one whose backward is the rmsnorm backward kernel,
   ``ssd_chunk``'s is the SSD chunk's backward kernel (the TPU kernels have
-  none: JAX differentiates the reference);
+  none: JAX differentiates the reference), and ``causal_conv_silu``'s the
+  causal conv's backward kernel (a kernel with no TPU counterpart);
 * ``fused_adam_multi`` updates lists of leaves in place, one launch per
   dtype group (``fused_adam`` is a list of one);
-* ``LAUNCHES`` counts the launches of every C entry point: the six kernels
-  and the rmsnorm and SSD chunk backwards (``build.LAUNCHES``);
+* ``LAUNCHES`` counts the launches of every C entry point: the seven kernels
+  and the rmsnorm, SSD chunk and causal conv backwards (``build.LAUNCHES``);
 * every wrapper makes its choice between kernel and plain version through
   ``build.kernel_call``, which an active trace (``core/trace.py``) records as
   one node a launch.
@@ -31,12 +35,13 @@
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..distributed import sharding
 from . import flash_attention as _fa
 from . import fused_adam as _ad
 from .build import LAUNCHES, PLAIN_DEVICES, kernel_call  # noqa: F401  (LAUNCHES: re-export)
+from .causal_conv import CausalConvSilu
 from .ref import from_heads, to_heads
 from .rmsnorm import RMSNorm
 from .ssd_chunk import SSDChunk
@@ -290,3 +295,27 @@ def ssd_chunk(x, dt, b, c, a):
     (BH,nc,N,hp) fp32, cum (BH,nc,Q) fp32) — views into the model-layout
     outputs (Bt = 1, one group per head)."""
     return from_heads(*ssd_chunk_heads(*to_heads(x, dt, b, c), a))
+
+
+def causal_conv_placements(u) -> tuple[tuple, tuple]:
+    """The placements a causal conv's ``local_map`` body takes for u
+    (B,S,C) and w (cw,C): u's batch and channel shards kept and its sequence
+    replicated (the conv crosses positions, never batch rows or channels),
+    w's channels sharded as u's."""
+    u_pl = tuple(pl if pl.is_shard(0) or pl.is_shard(2) else Replicate()
+                 for pl in u.placements)
+    w_pl = tuple(Shard(1) if pl.is_shard(2) else Replicate() for pl in u_pl)
+    return u_pl, w_pl
+
+
+def causal_conv_silu(u, w):
+    """``silu(conv(u, w))`` in u's dtype, the depthwise causal conv along
+    axis 1 (see ``kernels/causal_conv.py``): u (B,S,C) bf16 or fp32, w
+    (cw,C) fp32.  On DTensors, a ``local_map`` body over each rank's batch
+    rows and channels with the whole sequence; a replicated w's gradient
+    comes back ``Partial`` over the mesh dims that shard u's batch."""
+    if isinstance(u, DTensor):
+        u_pl, w_pl = causal_conv_placements(u)
+        return sharding.local_map(CausalConvSilu.apply, (u_pl,), (u_pl, w_pl),
+                                  u.device_mesh)(u, w)
+    return CausalConvSilu.apply(u, w)

@@ -4,14 +4,15 @@ Training / prefill runs the chunked SSD algorithm: quadratic, attention-like
 work *within* chunks and a linear state recurrence *across* chunks (a Python
 loop over the chunks, in fp32).  Cumulative and decay terms are fp32.
 
-With ``cfg.use_flash`` the within-chunk part is the hand-written kernel
-(``kernels.ops.ssd_chunk_heads``) and the gated norm is
-``kernels.ops.rmsnorm``; without it they are the reference's einsums and
-``layers.rmsnorm``.  In both, the decay exponent is masked before ``exp``
-(``exp(where(i >= j, cum_i − cum_j, −inf))``): the reference exponentiates
-first and masks after, which overflows for i < j once a chunk decays by more
-than ~88 and makes its gradients NaN at chunk 128 and up.  The forward values
-are the same.
+With ``cfg.use_flash`` the causal convs of x and B/C and their silu are the
+hand-written kernel (``kernels.ops.causal_conv_silu``), the within-chunk part
+is another (``kernels.ops.ssd_chunk_heads``) and the gated norm is
+``kernels.ops.rmsnorm``; without it they are the plain conv in fp32, the
+reference's einsums and ``layers.rmsnorm``.  In both, the decay exponent is
+masked before ``exp`` (``exp(where(i >= j, cum_i − cum_j, −inf))``): the
+reference exponentiates first and masks after, which overflows for i < j once
+a chunk decays by more than ~88 and makes its gradients NaN at chunk 128 and
+up.  The forward values are the same.
 
 Decode is the O(1) recurrent step (``ssd_decode_step``): an fp32 ring of the
 last ``conv_width − 1`` inputs of the causal convolution and the fp32 SSM
@@ -28,6 +29,7 @@ from ..core import spans
 from ..core.remat_policy import checkpoint_name
 from ..distributed.sharding import local_map, shard, unflatten
 from ..kernels import ops
+from ..kernels.causal_conv import conv_local
 from .layers import PSpec, norm
 
 
@@ -51,15 +53,6 @@ def ssm_specs(cfg) -> dict:
     }
 
 
-def _conv_local(u, w):
-    cw = w.shape[0]
-    out = u * w[-1]
-    for i in range(1, cw):
-        shifted = F.pad(u, (0, 0, i, 0))[:, :u.shape[1]]
-        out = out + shifted * w[-1 - i]
-    return out
-
-
 def _causal_conv(u, w):
     """Depthwise causal conv along axis 1.  u: (B,S,C); w: (cw,C).  On a
     DTensor, a ``local_map`` body over each rank's batch rows and channels
@@ -67,11 +60,9 @@ def _causal_conv(u, w):
     own pad and slice backward in torch 2.11 returned gradients of the wrong
     length and placements)."""
     if not isinstance(u, DTensor):
-        return _conv_local(u, w)
-    u_pl = tuple(pl if pl.is_shard(0) or pl.is_shard(2) else Replicate()
-                 for pl in u.placements)
-    w_pl = tuple(Shard(1) if pl.is_shard(2) else Replicate() for pl in u_pl)
-    return local_map(_conv_local, (u_pl,), (u_pl, w_pl), u.device_mesh)(u, w)
+        return conv_local(u, w)
+    u_pl, w_pl = ops.causal_conv_placements(u)
+    return local_map(conv_local, (u_pl,), (u_pl, w_pl), u.device_mesh)(u, w)
 
 
 def _intra_einsum(xc, dtc, Bc, Cc, cum):
@@ -109,8 +100,12 @@ def ssd_apply(p: dict, x, cfg):
         bc = x @ p["wbc"]
         spans.grads(sp, z, xin, bc)
     with spans.span("ssm.conv", xin) as sp:
-        xin = F.silu(_causal_conv(xin.float(), p["conv_x"])).to(x.dtype)
-        bc = F.silu(_causal_conv(bc.float(), p["conv_bc"])).to(x.dtype)
+        if cfg.use_flash:
+            xin = ops.causal_conv_silu(xin, p["conv_x"])
+            bc = ops.causal_conv_silu(bc, p["conv_bc"])
+        else:
+            xin = F.silu(_causal_conv(xin.float(), p["conv_x"])).to(x.dtype)
+            bc = F.silu(_causal_conv(bc.float(), p["conv_bc"])).to(x.dtype)
         xin = shard(xin, "batch", "seq", "ffn")
         Bm, Cm = unflatten(bc, -1, (2 * G, N)).split(G, dim=2)    # (B,S,G,N)
         spans.grads(sp, xin, Bm, Cm)

@@ -1,5 +1,5 @@
-"""The port's rmsnorm, fused_adam and ssd_chunk against the JAX package's, on
-the CPU.
+"""The port's rmsnorm, fused_adam, ssd_chunk and causal conv against the JAX
+package's, on the CPU.
 
 The JAX side runs its Pallas kernels in interpret mode (what
 ``repro.kernels.ops`` does off-TPU); the port runs the plain PyTorch versions
@@ -26,10 +26,12 @@ import torch
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.kernels.ssd_chunk import ssd_chunk as pallas_ssd_chunk
+from repro.models import ssm as ref_ssm
 from repro.optim import optimizers as ref_optim
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.convert import numpy_to_tensor, tree_leaves
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import causal_conv as cc
 from repro_torch.kernels import fused_adam as fad
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_chunk as sc
@@ -646,6 +648,92 @@ def test_ssd_bwd_tensor_core_rounding_fits_the_bf16_tolerance(case):
         assert np.all(err <= ROW_RTOL * np.maximum(norm, np.median(norm))), (name, err.max())
 
 
+# -- causal_conv ----------------------------------------------------------------------
+
+
+def conv_inputs(rng, shape, cw, dtype):
+    """u (B,S,C) in ``dtype``, w (cw,C) fp32 and dy like u."""
+    u = rand(rng, shape)[1].to(getattr(torch, dtype))
+    return u, rand(rng, (cw, shape[2]), scale=0.5)[1], rand(rng, shape)[1].to(u.dtype)
+
+
+@pytest.mark.parametrize("cw", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_conv_bwd_plain_is_autograd_of_the_plain_forward(cw, dtype):
+    """``causal_conv_bwd_plain`` writes out autograd's backward of
+    ``causal_conv_plain``: du and dw equal it bit for bit, with a sequence
+    shorter than the taps and one longer."""
+    rng = np.random.default_rng(19 + cw)
+    for shape in ((2, 3, 16), (3, 37, 64)):
+        u, w, dy = conv_inputs(rng, shape, cw, dtype)
+        ua, wa = u.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        want = torch.autograd.grad(cc.causal_conv_plain(ua, wa), (ua, wa), dy)
+        for a, b in zip(cc.causal_conv_bwd_plain(u, w, dy), want, strict=True):
+            assert a.dtype == b.dtype and torch.equal(a, b), shape
+
+
+@pytest.mark.parametrize("cw", [2, 4])
+def test_causal_conv_plain_matches_the_reference_conv(cw):
+    """fp32: the plain version against silu of the reference's
+    ``_causal_conv`` (jnp), values and gradients."""
+    rng = np.random.default_rng(23)
+    ju, u = rand(rng, (2, 19, 24))
+    jw, w = rand(rng, (cw, 24), scale=0.5)
+    jdy, dy = rand(rng, (2, 19, 24))
+    f = lambda a, b: jax.nn.silu(ref_ssm._causal_conv(a, b))
+    want, vjp = jax.vjp(f, ju, jw)
+    np.testing.assert_allclose(f32(cc.causal_conv_plain(u, w)), f32(want), atol=TOL["float32"])
+    for got, ref_grad in zip(cc.causal_conv_bwd_plain(u, w, dy), vjp(jdy), strict=True):
+        np.testing.assert_allclose(f32(got), f32(ref_grad), atol=5e-5, rtol=5e-5)
+
+
+def test_causal_conv_function_takes_the_plain_backward_on_cpu(monkeypatch):
+    """``CausalConvSilu``'s backward on CPU tensors is
+    ``causal_conv_bwd_plain`` from the saved u and w (the CUDA tensor's is
+    the kernel), and honours ``needs_input_grad``."""
+    rng = np.random.default_rng(21)
+    u, w, dy = conv_inputs(rng, (2, 11, 32), 4, "bfloat16")
+    calls = []
+    plain = cc.causal_conv_bwd_plain
+    monkeypatch.setattr(cc, "causal_conv_bwd_plain", lambda *a: calls.append(a) or plain(*a))
+    ua, wa = u.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    got = torch.autograd.grad(ops.causal_conv_silu(ua, wa), (ua, wa), dy)
+    assert len(calls) == 1 and torch.equal(calls[0][0], u) and torch.equal(calls[0][1], w)
+    for a, b in zip(got, plain(u, w, dy), strict=True):
+        assert torch.equal(a, b)
+    (du,) = torch.autograd.grad(ops.causal_conv_silu(ua, w), (ua,), dy)
+    assert torch.equal(du, got[0])
+
+
+def test_causal_conv_on_meta_gives_shapes_and_dtypes():
+    """A ``meta`` call takes the plain versions: y and du in u's dtype and
+    shape, dw fp32 in w's, nothing launched."""
+    before = dict(ops.LAUNCHES)
+    u = torch.empty((4, 4096, 256), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    w = torch.empty((4, 256), device="meta", requires_grad=True)
+    y = ops.causal_conv_silu(u, w)
+    assert y.device.type == "meta" and y.dtype == torch.bfloat16 and y.shape == u.shape
+    du, dw = torch.autograd.grad(y, (u, w), torch.empty_like(y))
+    assert (du.dtype, du.shape) == (torch.bfloat16, u.shape)
+    assert (dw.dtype, dw.shape) == (torch.float32, w.shape)
+    assert ops.LAUNCHES == before
+
+
+def test_causal_conv_geometry_at_mamba2():
+    """On an H100's 132 SMs at mamba2-1.3b's shapes: x (4 × 4096 × 4096)
+    walks runs of 64 positions (1,024 blocks of 128 channels, 32 partials of
+    dw a column), B/C (256 channels) runs of 8; the runs of a grid cover
+    every position of every sequence and the channel blocks every channel."""
+    assert cc.geometry(4, 4096, 4096, 132) == {"run": 64, "grid": (32, 8, 4), "parts": 32}
+    assert cc.geometry(4, 4096, 256, 132) == {"run": 8, "grid": (2, 64, 4), "parts": 256}
+    for B, S, C in ((1, 1, 8), (3, 1000, 200), (2, 77, 16384)):
+        geo = cc.geometry(B, S, C, 132)
+        gx, gy, gz = geo["grid"]
+        assert gz == B and geo["parts"] == B * gy and geo["run"] in cc.RUNS
+        assert (gy - 1) * cc.WARPS * geo["run"] < S <= gy * cc.WARPS * geo["run"]
+        assert (gx - 1) * cc.LANES * cc.CHANNELS < C <= gx * cc.LANES * cc.CHANNELS
+
+
 # -- the bf16 kernels' launch geometry ----------------------------------------------------
 
 SLICE_CASES = [(64, 1), (8, 2), (6, 3), (48, 2), (17, 1), (96, 4), (4, 4)]
@@ -735,25 +823,33 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     ops.ssd_chunk(*ssd_inputs(rng, 2, 1, 32, 16, 16)[1])
     xg = x.clone().requires_grad_(True)
     ops.rmsnorm(xg, torch.zeros(64)).sum().backward()
+    ug = rand(rng, (2, 9, 16))[1].bfloat16().requires_grad_(True)
+    ops.causal_conv_silu(ug, torch.ones(4, 16)).float().sum().backward()
     assert ops.LAUNCHES == before
 
 
 def test_six_kernels_are_built_counted_and_documented():
+    """The six ported kernels and the causal conv, which replaces no TPU
+    kernel (the reference's conv is jnp that XLA fuses) and says so."""
     assert build.SOURCES == ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm", "fused_adam",
-                             "ssd_chunk")
-    # every source's entry point, the rmsnorm backward in rmsnorm.cu and the
-    # SSD chunk's backward in ssd_chunk.cu
+                             "ssd_chunk", "causal_conv")
+    # every source's entry point, the rmsnorm backward in rmsnorm.cu, the
+    # SSD chunk's backward in ssd_chunk.cu and the conv's in causal_conv.cu
     assert build.ENTRY_POINTS == {**{n: n for n in build.SOURCES}, "rmsnorm_bwd": "rmsnorm",
-                                  "ssd_chunk_bwd": "ssd_chunk"}
+                                  "ssd_chunk_bwd": "ssd_chunk",
+                                  "causal_conv_bwd": "causal_conv"}
     assert list(ops.LAUNCHES) == list(build.ENTRY_POINTS) and ops.LAUNCHES is build.LAUNCHES
     for entry, source in build.ENTRY_POINTS.items():
         assert f'extern "C" int {entry}(' in open(os.path.join(CSRC, f"{source}.cu")).read()
     tpu = {"flash_fwd": "_fwd_kernel", "flash_dq": "flash_attention.py",
            "flash_dkv": "flash_attention.py", "rmsnorm": "_rmsnorm_kernel",
-           "fused_adam": "_adam_kernel", "ssd_chunk": "_ssd_chunk_kernel"}
+           "fused_adam": "_adam_kernel", "ssd_chunk": "_ssd_chunk_kernel",
+           "causal_conv": "_causal_conv"}
     for name in build.SOURCES:
         head = open(os.path.join(CSRC, f"{name}.cu")).read(4000)
-        assert "Replaces the Pallas TPU kernel" in head and tpu[name] in head, name
+        replaces = "Replaces no Pallas TPU kernel" if name == "causal_conv" else \
+            "Replaces the Pallas TPU kernel"
+        assert replaces in head and tpu[name] in head, name
         assert "What bounds it on this card" in head, name
         assert f'extern "C" int {name}(' in open(os.path.join(CSRC, f"{name}.cu")).read()
 
@@ -802,6 +898,27 @@ def _bad_input(kind):
         if kind == "adam_multi_mv_dtypes":
             return fad.fused_adam_multi_cuda, args, TypeError
         return fad.fused_adam_multi_cuda, args, ValueError, match
+    if kind.startswith("conv"):
+        u, w = rand(rng, (2, 9, 16))[1].bfloat16(), torch.ones(4, 16)
+        if kind == "conv_cpu":
+            return cc.causal_conv_cuda, (u, w), ValueError
+        if kind == "conv_channels":
+            return cc.causal_conv_cuda, (u[..., :12].contiguous(), w[:, :12].contiguous()), \
+                ValueError
+        if kind == "conv_taps":
+            return cc.causal_conv_cuda, (u, torch.ones(5, 16)), ValueError
+        if kind == "conv_dtype":
+            return cc.causal_conv_cuda, (u.half(), w), TypeError
+        if kind == "conv_w_dtype":
+            return cc.causal_conv_cuda, (u, w.bfloat16()), TypeError
+        if kind == "conv_last_dim":
+            return cc.causal_conv_cuda, (u.transpose(1, 2).contiguous().transpose(1, 2), w), \
+                ValueError, "last dim must be contiguous"
+        if kind == "conv_bwd_cpu":
+            return cc.causal_conv_bwd_cuda, (u, w, u.clone()), ValueError
+        if kind == "conv_bwd_dy_dtype":
+            return cc.causal_conv_bwd_cuda, (u, w, u.float()), TypeError
+        raise KeyError(kind)
     _, (x, dt, b, c, a) = ssd_inputs(rng, 2, 1, 32, 16, 16)
     heads = (*ref.to_heads(x, dt, b, c), a)
     if kind.startswith("ssd_bwd"):
@@ -847,12 +964,16 @@ def _bad_input(kind):
                                   "rmsnorm_bwd_cpu", "rmsnorm_bwd_dy_dtype",
                                   "rmsnorm_bwd_dy_shape", "adam_multi_cpu",
                                   "adam_multi_misaligned", "adam_multi_mv_dtypes",
-                                  "ssd_bwd_cpu", "ssd_bwd_head_dim", "ssd_bwd_dy_dtype"])
+                                  "ssd_bwd_cpu", "ssd_bwd_head_dim", "ssd_bwd_dy_dtype",
+                                  "conv_cpu", "conv_channels", "conv_taps", "conv_dtype",
+                                  "conv_w_dtype", "conv_last_dim", "conv_bwd_cpu",
+                                  "conv_bwd_dy_dtype"])
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(kind):
     """The CUDA wrappers never compute anything for inputs outside the
     kernels' contract (CPU tensors included), and never fall back.  The bf16
-    SSD cases and the misaligned Adam leaf raise on the alignment itself,
-    before the device is looked at."""
+    SSD cases, the misaligned Adam leaf and the causal conv's channel count,
+    taps, dtypes and last dim raise on the contract itself, before the device
+    is looked at."""
     fn, args, exc, *match = _bad_input(kind)
     before = dict(ops.LAUNCHES)
     with pytest.raises(exc, match=match[0] if match else None):
@@ -861,12 +982,13 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(kind):
 
 
 def test_port_never_calls_the_library_yardsticks():
-    """chip_smoke.py times F.rms_norm and torch._fused_adamw_ beside the
-    kernels; the port itself never calls them."""
+    """chip_smoke.py times F.rms_norm, torch._fused_adamw_ and F.conv1d
+    beside the kernels; the port itself never calls them."""
     root = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch")
     for d, _, fs in os.walk(root):
         for f in fs:
             if f.endswith((".py", ".cu", ".cuh")):
                 text = open(os.path.join(d, f)).read()
-                for call in ("rms_norm(", "_fused_adamw", "optim.AdamW", "torch.compile"):
+                for call in ("rms_norm(", "_fused_adamw", "optim.AdamW", "torch.compile",
+                             "conv1d("):
                     assert call not in text, (f, call)

@@ -99,8 +99,9 @@ def _marked(fn):
 @contextlib.contextmanager
 def recorded(monkeypatch):
     """Every decision that SAC receives from a port policy, as (op, the tag's
-    name, inside a kernel wrapper — ``ops.flash_attention``, ``ops.rmsnorm``
-    or ``ops.ssd_chunk_heads`` —, the output's shape, policy)."""
+    name, inside a kernel wrapper — ``ops.flash_attention``, ``ops.rmsnorm``,
+    ``ops.ssd_chunk_heads`` or ``ops.causal_conv_silu`` —, the output's
+    shape, policy)."""
     log = []
     make = rp.create_selective_checkpoint_contexts
 
@@ -115,7 +116,7 @@ def recorded(monkeypatch):
 
     with monkeypatch.context() as m:
         m.setattr(rp, "create_selective_checkpoint_contexts", recording)
-        for name in ("flash_attention", "rmsnorm", "ssd_chunk_heads"):
+        for name in ("flash_attention", "rmsnorm", "ssd_chunk_heads", "causal_conv_silu"):
             m.setattr(ops, name, _marked(getattr(ops, name)))
         yield log
 

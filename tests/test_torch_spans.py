@@ -34,7 +34,8 @@ ARCHS = {"mamba2": "mamba2-1.3b", "olmoe": "olmoe-1b-7b"}
 MIXER = {"mamba2": ("ssm.proj_in", "ssm.conv", "ssm.chunk", "ssm.scan", "ssm.gate",
                     "ssm.proj_out"),
          "olmoe": ("attn", "moe.route", "moe.dispatch", "moe.experts", "moe.combine")}
-KERNELS = {"mamba2": ({"rmsnorm", "ssd_chunk"}, {"rmsnorm_bwd", "ssd_chunk_bwd"}),
+KERNELS = {"mamba2": ({"rmsnorm", "ssd_chunk", "causal_conv"},
+                      {"rmsnorm_bwd", "ssd_chunk_bwd", "causal_conv_bwd"}),
            "olmoe": ({"rmsnorm", "flash_fwd"}, {"rmsnorm_bwd", "flash_dq", "flash_dkv"})}
 STEP = ("step", "step.forward", "step.backward", "step.optimizer")
 

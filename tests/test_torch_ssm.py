@@ -123,6 +123,25 @@ def test_causal_conv(cw):
 # -- ssd_apply -----------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("cw", [2, 4])
+def test_causal_conv_silu_is_the_plain_code_to_the_bit(cw):
+    """On the CPU the kernel route's ``ops.causal_conv_silu`` (bf16 u) is the
+    plain route's ``silu(_causal_conv(u.float(), w))`` cast back, values and
+    both gradients equal bit for bit."""
+    rng = np.random.default_rng(5)
+    u = torch.from_numpy(rng.standard_normal((2, 37, 64)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((cw, 64)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((2, 37, 64)).astype(np.float32)).bfloat16()
+    outs = []
+    for conv in (lambda a, b: ops.causal_conv_silu(a, b),
+                 lambda a, b: torch.nn.functional.silu(ssm._causal_conv(a.float(), b)).to(a.dtype)):
+        ua, wa = u.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = conv(ua, wa)
+        outs.append((y, *torch.autograd.grad(y, (ua, wa), dy)))
+    for got, want in zip(*outs, strict=True):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("chunk,S", [(8, 32), (32, 64), (16, 16)])
 def test_ssd_apply_matches_reference(route, chunk, S):

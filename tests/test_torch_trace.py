@@ -313,10 +313,11 @@ KERNEL_ARCHS = ["gemma3-1b", "mamba2-1.3b", "olmoe-1b-7b"]
 def expected_kernel_nodes(cfg, params) -> dict:
     """A step's kernel calls, from the model code (as ``chip_smoke.py``
     derives launches): a layer's norms, one flash_fwd for attention and one
-    ssd_chunk for a mamba mixer, each again when its period is recomputed;
-    one rmsnorm_bwd a norm, flash_dq and flash_dkv for attention, one
-    ssd_chunk_bwd for a mamba mixer; the final norm and its backward; one
-    fused_adam a launch group."""
+    ssd_chunk and two causal_conv (x and B/C) for a mamba mixer, each again
+    when its period is recomputed; one rmsnorm_bwd a norm, flash_dq and
+    flash_dkv for attention, one ssd_chunk_bwd and two causal_conv_bwd for a
+    mamba mixer; the final norm and its backward; one fused_adam a launch
+    group."""
     out = dict.fromkeys(build.ENTRY_POINTS, 0)
     period = cfg.scan_period()
     recomputed = (cfg.n_layers // period) * period if resolve_remat(cfg.remat)[0] else 0
@@ -329,6 +330,8 @@ def expected_kernel_nodes(cfg, params) -> dict:
         out["flash_dkv"] += attn
         out["ssd_chunk"] += runs * mamba
         out["ssd_chunk_bwd"] += mamba
+        out["causal_conv"] += 2 * runs * mamba
+        out["causal_conv_bwd"] += 2 * mamba
         out["rmsnorm"] += runs * norms
         out["rmsnorm_bwd"] += norms
     out["rmsnorm"] += 1
@@ -361,7 +364,8 @@ def test_kernel_calls_are_nodes(arch, remat):
     kn = [n for n in g.nodes.values() if n.meta.get("kernel")]
     assert len(kn) == sum(rec.kernel_nodes.values())
     for n in kn:
-        assert n.op == {"rmsnorm": "norm", "rmsnorm_bwd": "norm_bwd", "fused_adam": "opt"}.get(
+        assert n.op == {"rmsnorm": "norm", "rmsnorm_bwd": "norm_bwd", "fused_adam": "opt",
+                        "causal_conv": "elementwise", "causal_conv_bwd": "elementwise"}.get(
             n.meta["kernel"], "gemm")
         if n.op == "gemm":
             assert n.flops > 0 and n.flops == 2 * n.dims["B"] * n.dims["M"] * n.dims["N"] * \
